@@ -1,0 +1,8 @@
+"""Yi-34B — llama-arch GQA [arXiv:2403.04652; hf]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-34b", family="dense",
+    n_layers=60, d_model=7168, n_heads=56, n_kv_heads=8,
+    d_ff=20480, vocab_size=64000, head_dim=128,
+)
