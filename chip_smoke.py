@@ -3,25 +3,45 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build the checksum kernels (K1 tile digests, K2 whole-leaf digest,
-     K3 dirty-tile gather) from `src/repro_torch/kernels/checksum/csrc`;
-  2. hold each kernel bit for bit against its plain PyTorch version at the
-     main path's shapes (the paper-demo embedding table (32768, 768) fp32,
-     a bf16 leaf, an odd-length leaf, a bool leaf, a 5 %-dirty tile set),
-     and time kernel, plain version and, for K3, `torch.index_select`;
-  3. the main path at full width: `repro_torch.launch.train --arch
+  1. build every kernel of the port from its source, one `nvcc` per
+     source, all started together: the checksum kernels (K1 tile digests,
+     K2 whole-leaf digest, K3 dirty-tile gather) from
+     `src/repro_torch/kernels/checksum/csrc` and the flash-attention
+     kernel F1 from `src/repro_torch/kernels/flash_attention/csrc`;
+  2. hold each checksum kernel bit for bit against its plain PyTorch
+     version at the main path's shapes (the paper-demo embedding table
+     (32768, 768) fp32, a bf16 leaf, an odd-length leaf, a bool leaf, a
+     5 %-dirty tile set), and time kernel, plain version and, for K3,
+     `torch.index_select`;
+  3. [flash] hold F1 against its plain version at the prefill shapes of
+     the serving paths (qwen2-7b at S 512, 384 and the odd 77; paper-demo
+     at S 4 and 6) and at two extra cases (a query suffix Sq < Sk, and
+     paper-demo at S 512) in bf16 and fp32, causal and not, to 2e-2
+     (bf16) and 2e-5 (fp32); check that a row's bits do not depend on the
+     batch; time F1, its plain version and `scaled_dot_product_attention`;
+  4. the training path at full width: `repro_torch.launch.train --arch
      paper-demo` (batch 8, seq 256) twice with a fault and twice without —
      full saves + a process fault under reinit, and delta saves
      (--ckpt-delta-every 4) + a node fault under cr, which reloads from
      files — each faulted run's final state bit-identical to its twin's;
-  4. a sparse-dirt checkpoint: FileCheckpointer(delta_every=4) on the
+  5. a sparse-dirt checkpoint: FileCheckpointer(delta_every=4) on the
      full paper-demo train state with a 5 % window of every leaf changed
      between saves, so the delta save gathers dirty tiles on the card;
-  5. the kernel report. Launches are counted per path: the counts are
-     set to 0 just before each train CLI run and each sparse save and
-     read just after it. K2 must launch on the full-save runs, K1 on the
-     delta-cadence runs, and K3 (which training never reaches: AdamW
-     dirties every tile) on the sparse-dirt saves.
+  6. [serve] the serving path at the full published width and depth of
+     qwen2-7b: `repro_torch.launch.serve` with `--attn-impl pallas` (F1
+     must launch once per layer and prefill); then, through the API, the
+     same requests served once straight through and once with a
+     snapshot/restore in the middle (bit-identical transcripts and state),
+     and prefill logits of `pallas` against `chunked`;
+  7. [serve-cluster] the `fast` cells of the serving catalog under both
+     reinit and replica at paper-demo full width, each lossless against
+     its fault-free run;
+  8. the kernel report. Launches are counted per path: the counts are
+     set to 0 just before each path is driven and read just after it.
+     K2 must launch on the full-save runs, K1 on the delta-cadence runs,
+     K3 (which training never reaches: AdamW dirties every tile) on the
+     sparse-dirt saves, and F1 on both serving paths, where every shape,
+     dtype and mask it was given must be one that phase 3 checked.
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -29,12 +49,17 @@ repository around it, the script fails before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import gc
+import io
 import json
 import os
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
@@ -42,7 +67,42 @@ WORK = os.path.join(HERE, "build", "chip_smoke")
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 INT32_OPS_PER_S = 67e12       # the guide's non-tensor 32-bit rate (fp32)
+FLOPS_PER_S = {"bfloat16": 989e12,   # dense bf16 tensor-core peak
+               "float32": 67e12}     # fp32 outside the tensor cores
 STEPS = 6
+
+# F1's shapes, (B, Sq, Sk, H, Hkv, hd). First the prefills of the driven
+# serving paths (every prefill group is lane-padded to B 4): the serve
+# CLI's qwen2-7b groups and the serving cells' paper-demo prompts (the
+# load generator's lengths 4 and 6). Every shape F1 is given on those
+# paths must be among them (checked after the paths ran). Then extra
+# cases that no driven path gives F1.
+FLASH_SHAPES = {
+    "qwen2-7b prefill S 512": (4, 512, 512, 28, 4, 128),
+    "qwen2-7b prefill S 384": (4, 384, 384, 28, 4, 128),
+    "qwen2-7b prefill odd S 77": (4, 77, 77, 28, 4, 128),
+    "paper-demo prefill S 4": (4, 4, 4, 12, 12, 64),
+    "paper-demo prefill S 6": (4, 6, 6, 12, 12, 64),
+    "extra: qwen2-7b suffix Sq<Sk": (4, 128, 640, 28, 4, 128),
+    "extra: paper-demo S 512": (4, 512, 512, 12, 12, 64),
+}
+# the shape that stands for F1 on the kernels line
+FLASH_MAIN = "qwen2-7b prefill S 512"
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# the serve CLI's request set: two prefill groups (512, 384) and a 77
+SERVE_PROMPTS = (512, 512, 512, 512, 384, 384, 384, 77)
+SERVE_FLAGS = ["--arch", "qwen2-7b", "--attn-impl", "pallas", "--slots",
+               "4", "--max-len", "1024", "--max-new", "32", "--requests",
+               str(len(SERVE_PROMPTS)), "--prompt-len",
+               ",".join(map(str, SERVE_PROMPTS))]
+# pallas vs chunked prefill logits of bf16 qwen2-7b: within this share of
+# the largest logit (28 layers of bf16 activations, rounded at points
+# that differ once the attention sums differ in order)
+LOGIT_TOL = 5e-2
+# the random models' embedding table is drawn at scale 1.0 and tied to the
+# unembedding, so greedy decode repeats the last prompt token whatever the
+# attention computes; the API checks scale it so transcripts depend on it
+TABLE_SCALE = 0.05
 
 
 def fail(msg: str):
@@ -68,6 +128,41 @@ def timed(fn, iters: int = 20, warmup: int = 3) -> tuple[float, float]:
     host_ms = (time.perf_counter() - t0) * 1e3 / iters
     end.synchronize()
     return start.elapsed_time(end) / iters, host_ms
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from repro_torch.kernels.checksum import ops
+    from repro_torch.kernels.flash_attention import ops as fa
+    ops.reset_launches()
+    fa.reset_launches()
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches since the last reset} of every kernel."""
+    from repro_torch.kernels.checksum import ops
+    from repro_torch.kernels.flash_attention import ops as fa
+    return {**ops.LAUNCHES, **fa.LAUNCHES}
+
+
+@contextlib.contextmanager
+def recording_flash_shapes(seen: set):
+    """Add ((B, Sq, Sk, H, Hkv, hd), dtype, causal) of every F1 launch in
+    the model layout to `seen` while the block runs."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    inner = fa.flash_attention_kernel
+
+    def record(q, k, v, *, causal):
+        shape = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                 q.shape[3])
+        seen.add((shape, str(q.dtype).removeprefix("torch."), causal))
+        return inner(q, k, v, causal=causal)
+
+    fa.flash_attention_kernel = record
+    try:
+        yield
+    finally:
+        fa.flash_attention_kernel = inner
 
 
 def max_abs_err(a, b) -> int:
@@ -153,6 +248,315 @@ def phase_kernels(torch, ops):
     return rows
 
 
+def attention_work(B, Sq, Sk, H, Hkv, hd, causal, itemsize):
+    """(FLOPs, bytes) of one attention forward on these inputs: 4*hd
+    FLOPs per unmasked (query, key) pair; q, k, v read once, o written
+    once."""
+    if causal:    # query i sits at key position i + Sk - Sq
+        pairs = sum(min(Sk, max(0, i + Sk - Sq + 1)) for i in range(Sq))
+    else:
+        pairs = Sq * Sk
+    return (4 * B * H * hd * pairs,
+            itemsize * (2 * B * Sq * H * hd + 2 * B * Sk * Hkv * hd))
+
+
+def flash_bound_ms(flops: int, nbytes: int, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FLOPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_flash(torch) -> tuple[dict, set]:
+    """Phase 3: F1 against its plain version; lane independence; times.
+    Returns F1's row of the kernels line and the (shape, dtype, causal)
+    cases checked."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def inputs(shape, dtype):
+        B, Sq, Sk, H, Hkv, hd = shape
+        return [torch.randn(s, generator=g, device="cuda").to(dtype)
+                for s in ((B, Sq, H, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd))]
+
+    errs = {}
+    for name, shape in FLASH_SHAPES.items():
+        for dname in ("bfloat16", "float32"):
+            q, k, v = inputs(shape, getattr(torch, dname))
+            for causal in ((True, False) if name == FLASH_MAIN
+                           else (True,)):
+                got = fa.flash_attention_kernel(q, k, v, causal=causal)
+                want = flash_attention_ref(q, k, v, causal=causal)
+                err = float((got.float() - want.float()).abs().max())
+                finite = bool(torch.isfinite(got).all())
+                errs[(name, dname, causal)] = err
+                print(f"[flash] {name} {shape} {dname} "
+                      f"{'causal' if causal else 'non-causal'}: "
+                      f"max_abs_err {err:.3g} (tol {FLASH_TOL[dname]})")
+                if not finite or err > FLASH_TOL[dname]:
+                    fail(f"F1 disagrees with its plain version: {name} "
+                         f"{dname} causal={causal}")
+
+    q, k, v = inputs(FLASH_SHAPES[FLASH_MAIN], torch.bfloat16)
+    whole = fa.flash_attention_kernel(q, k, v, causal=True)
+    for b in range(q.shape[0]):
+        alone = fa.flash_attention_kernel(q[b:b + 1], k[b:b + 1],
+                                          v[b:b + 1], causal=True)
+        if not torch.equal(whole[b:b + 1], alone):
+            fail(f"F1 lane {b} differs from the same row launched alone")
+    print("[flash] lane independence: each lane of the B=4 qwen2-7b bf16 "
+          "launch is bitwise equal to that row launched alone")
+
+    rows = {}
+    for name in (FLASH_MAIN, "paper-demo prefill S 6",
+                 "extra: paper-demo S 512"):
+        shape = FLASH_SHAPES[name]
+        q, k, v = inputs(shape, torch.bfloat16)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        # F1 alone, on the flattened layout it takes: (B*H, S, hd)
+        qf, kf, vf = (t.reshape(-1, *t.shape[2:]).contiguous()
+                      for t in (qt, kt, vt))
+        bhsd = lambda: fa.flash_attention_bhsd_kernel(
+            qf, kf, vf, causal=True, n_q_heads=shape[3])
+        kern = lambda: fa.flash_attention_kernel(q, k, v, causal=True)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        ms, host_ms = timed(bhsd)
+        op_ms = timed(kern)[0]
+        plain_ms = timed(lambda: flash_attention_ref(q, k, v, causal=True),
+                         iters=5, warmup=1)[0]
+        # a yardstick only, never called by the port; Sq == Sk here, where
+        # its top-left causal alignment agrees with the reference's
+        torch.use_deterministic_algorithms(False)
+        try:
+            lib_ms = timed(sdpa)[0]
+            sdpa_diff = float((sdpa().transpose(1, 2).float()
+                               - kern().float()).abs().max())
+        finally:
+            torch.use_deterministic_algorithms(True)
+        flops, nbytes = attention_work(*shape, True, 2)
+        bms, by = flash_bound_ms(flops, nbytes, "bfloat16")
+        print(f"[flash] {name} {shape} bf16 causal: F1 {ms:.4f} ms (host "
+              f"issue {host_ms:.4f} ms/call, {flops / ms / 1e9:.1f} "
+              f"TFLOP/s); {op_ms:.4f} ms with the model layout's "
+              f"transposes; plain {plain_ms:.4f} ms; sdpa {lib_ms:.4f} ms "
+              f"(max diff to F1 {sdpa_diff:.3g}); bound {bms:.4f} ms by "
+              f"{by}")
+        rows[name] = {"max_abs_err": errs[(name, "bfloat16", True)],
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                      "bound_by": by, "library_ms": lib_ms}
+    checked = {(FLASH_SHAPES[name], dname, causal)
+               for name, dname, causal in errs}
+    return rows[FLASH_MAIN], checked
+
+
+def _serve_prompts(vocab: int, seed: int = 0) -> list:
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(2, vocab, n)]
+            for n in SERVE_PROMPTS]
+
+
+def phase_serve(torch, seen: set) -> dict:
+    """Phase 6: qwen2-7b at full width and depth. Returns the launches of
+    the serve CLI's run and adds F1's cases on it to `seen`."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import ExecConfig
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("qwen2-7b")
+    print(f"[serve] qwen2-7b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}, qkv_bias {cfg.qkv_bias}; depth not cut")
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf), recording_flash_shapes(seen):
+        rc = serve_main(SERVE_FLAGS)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if rc != 0:
+        fail("serve CLI failed")
+    out = json.loads(buf.getvalue())
+    print(f"[serve] CLI {' '.join(SERVE_FLAGS)}: {json.dumps(out)}")
+    want = cfg.n_layers * out["prefill_calls"]
+    if out["completed"] != len(SERVE_PROMPTS):
+        fail("serve CLI did not complete every request")
+    if launches["flash_attention"] != want or want == 0:
+        fail(f"F1 launched {launches['flash_attention']} times on the serve "
+             f"path, expected {cfg.n_layers} layers x "
+             f"{out['prefill_calls']} prefills = {want}")
+    print(f"[serve] launches {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # through the API: params drawn once, on the card
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, ExecConfig(attn_impl="pallas"))
+    t0 = time.monotonic()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"[serve] qwen2-7b init: {n_params} float32 parameters drawn on "
+          f"the card in {time.monotonic() - t0:.2f} s")
+    params["embedding"]["table"].mul_(TABLE_SCALE)
+    prompts = _serve_prompts(cfg.vocab_size)
+
+    def engine(sink=None):
+        eng = ServeEngine(model, params, n_slots=4, max_len=1024, sink=sink)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=32))
+        return eng
+
+    # token delivery times (the sink runs after each step's argmax has
+    # come back to the host, so they are the card's times too)
+    first_at, n_tok = {}, [0]
+
+    def sink(rid, idx, tok):
+        n_tok[0] += 1
+        first_at.setdefault(rid, time.monotonic() - t0)
+
+    t0 = time.monotonic()
+    straight = engine(sink)
+    want = {r.rid: r.out for r in straight.run_until_drained()}
+    wall = time.monotonic() - t0
+    ttft = sorted(first_at.values())
+    print(f"[serve] straight run: {len(want)} requests, {n_tok[0]} tokens in "
+          f"{wall:.2f} s; time to first token {ttft[0]:.3f} s (first "
+          f"request) to {ttft[-1]:.3f} s (last, queued behind the first "
+          f"wave); {(n_tok[0] - len(want)) / (wall - ttft[0]):.1f} decode "
+          f"tokens/s after the first token")
+    first = engine()
+    for _ in range(8):
+        first.step()
+    snap = first.snapshot()
+    # keep decoding (the live caches move on), under the profiler: where
+    # a decode step's time goes on the card
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.monotonic()
+        for _ in range(4):
+            first.step()
+        torch.cuda.synchronize()
+        step_ms = (time.monotonic() - t1) * 1e3 / 4
+    events = [e for e in prof.key_averages()      # kernels, not host ops
+              if e.device_type == DeviceType.CUDA]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / 4
+    print(f"[serve] profile of 4 decode steps (4 slots): {step_ms:.1f} ms "
+          f"a step on the host clock, {device_ms:.1f} ms of device time a "
+          f"step; top kernels by device time a step:")
+    for e in events[:6]:
+        print(f"[serve]   {e.self_device_time_total / 1e3 / 4:8.2f} ms "
+              f"x{e.count // 4:<5d} {e.key[:90]}")
+    second = ServeEngine(model, params, n_slots=4, max_len=1024)
+    second.restore(snap)
+    got = {r.rid: r.out for r in second.run_until_drained()}
+    if got != want:
+        fail("a snapshot/restore in the middle changed the transcripts")
+    if not all(torch.equal(straight.state[k], second.state[k])
+               for k in straight.state):
+        fail("a snapshot/restore in the middle changed the final KV state")
+    print(f"[serve] snapshot at step 8, 4 more steps, restore into a new "
+          f"engine: transcripts of {len(got)} requests and the final KV "
+          f"state bit-identical to the straight run; "
+          f"{len({tuple(v) for v in want.values()})} distinct transcripts")
+    del straight, first, second, snap
+
+    chunked = Model(cfg, ExecConfig(attn_impl="chunked"))
+    for rows in (prompts[:4], prompts[4:7], prompts[7:]):
+        n = len(rows[0])
+        toks = torch.tensor(rows, device="cuda")
+        with torch.no_grad():
+            lp, _ = model.prefill(params, {"tokens": toks}, max_len=1024)
+            lc, _ = chunked.prefill(params, {"tokens": toks}, max_len=1024)
+        lp, lc = lp[:, -1].float(), lc[:, -1].float()
+        scale = float(lc.abs().max())
+        rel = float((lp - lc).abs().max()) / scale
+        tp, tc = lp.argmax(-1), lc.argmax(-1)
+        for b in range(len(rows)):
+            gap = float(lc[b, tc[b]] - lc[b, tp[b]])
+            if gap > LOGIT_TOL * scale:
+                fail(f"prompt {n}: pallas's first token {int(tp[b])} is "
+                     f"{gap:.3g} below chunked's {int(tc[b])}")
+        print(f"[serve] prefill S {n} x {len(rows)}: pallas vs chunked "
+              f"logits max diff {rel:.3g} of the largest (tol {LOGIT_TOL}); "
+              f"first tokens equal on {int((tp == tc).sum())} of "
+              f"{len(rows)} lanes")
+        if rel > LOGIT_TOL:
+            fail(f"pallas and chunked prefill logits differ at S {n}")
+    print(f"[serve] peak device memory of the API checks "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_cluster(torch, seen: set) -> dict:
+    """Phase 7: the fast serving cells under reinit and replica at
+    paper-demo full width. Returns the launches of the whole phase and
+    adds F1's cases in it to `seen`."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import ExecConfig
+    from repro_torch.scenarios.catalog import SERVE_CATALOG
+    from repro_torch.serve import LoadGen, ServeCluster
+
+    model = Model(get_config("paper-demo"), ExecConfig(attn_impl="pallas"))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    params["embedding"]["table"].mul_(TABLE_SCALE)
+
+    def load(sc):
+        return LoadGen(world=sc.world, rounds=sc.rounds,
+                       per_round=sc.per_round, max_new=sc.max_new_tokens,
+                       seed=sc.seed)
+
+    refs = {}
+    reset_launches()
+    with recording_flash_shapes(seen):
+        for cell in (s for s in SERVE_CATALOG if "fast" in s.tags):
+            key = (cell.world, cell.n_slots, cell.max_len, cell.rounds,
+                   cell.per_round, cell.max_new_tokens, cell.seed)
+            if key not in refs:
+                c = ServeCluster(model, params, world=cell.world,
+                                 n_slots=cell.n_slots, max_len=cell.max_len)
+                m = c.run(load(cell), rounds=cell.rounds)
+                if m["requests_dropped"]:
+                    fail(f"{cell.name}: the fault-free run dropped requests")
+                refs[key] = c.transcripts()
+            for strategy in ("reinit", "replica"):
+                sc = dataclasses.replace(cell, strategy=strategy)
+                t0 = time.monotonic()
+                c = ServeCluster(model, params, world=sc.world,
+                                 n_slots=sc.n_slots, max_len=sc.max_len,
+                                 strategy=sc.strategy,
+                                 publish_every=sc.publish_every,
+                                 respawn_delay=sc.respawn_delay)
+                m = c.run(load(sc), rounds=sc.rounds, fault=sc.fault())
+                wall = time.monotonic() - t0
+                if not m["kills"] or m["requests_dropped"]:
+                    fail(f"{sc.name} {strategy}: kills {m['kills']}, dropped "
+                         f"{m['dropped_rids']}")
+                if c.transcripts() != refs[key]:
+                    fail(f"{sc.name} {strategy}: transcripts differ from the "
+                         "fault-free run")
+                k = m["kills"][0]
+                print(f"[serve-cluster] {sc.name} under {strategy}: lossless, "
+                      f"{m['tokens_delivered']} tokens, rounds down "
+                      f"{k['rounds_down']}, replayed {k['replayed_tokens']}, "
+                      f"tokens to first recovered token "
+                      f"{k['tokens_to_first_recovered_token']}, {wall:.2f} s")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"[serve-cluster] launches {launches}")
+    return launches
+
+
 def final_digests(ckpt_dir: str) -> dict:
     """Leaf digests of the newest checkpoint, after a verified load (the
     host-side numpy digest re-checks what the kernels wrote)."""
@@ -176,7 +580,7 @@ def phase_train(torch, ops) -> dict:
     launches = {}
     for name, (flags, fault) in runs.items():
         out = {}
-        launches[name] = {k: 0 for k in ops.LAUNCHES}
+        launches[name] = {k: 0 for k in launch_counts()}
         for twin in (False, True):
             tag = f"{name}-{'twin' if twin else 'fault'}"
             d = os.path.join(WORK, tag)
@@ -184,11 +588,11 @@ def phase_train(torch, ops) -> dict:
                     "--ckpt-dir", d, "--report", d + ".json", "--seed", "0",
                     *flags, *([] if twin else fault)]
             t0 = time.monotonic()
-            ops.reset_launches()
+            reset_launches()
             if main(args) != 0:
                 fail(f"{tag}: train CLI failed")
             torch.cuda.synchronize()
-            for k, n in ops.LAUNCHES.items():
+            for k, n in launch_counts().items():
                 launches[name][k] += n
             wall = time.monotonic() - t0
             with open(d + ".json") as f:
@@ -238,15 +642,15 @@ def phase_sparse_dirt(torch, ops) -> dict:
 
     d = os.path.join(WORK, "sparse")
     ck = FileCheckpointer(d, n_shards=4, delta_every=4, keep=4)
-    launches = {k: 0 for k in ops.LAUNCHES}
+    launches = {k: 0 for k in launch_counts()}
     for step in (1, 2, 3):
         if step > 1:
             state = mutate(state, step)
         t0 = time.monotonic()
-        ops.reset_launches()
+        reset_launches()
         ck.save(step, state)
         torch.cuda.synchronize()
-        for k, n in ops.LAUNCHES.items():
+        for k, n in launch_counts().items():
             launches[k] += n
         w = ck.last_write
         print(f"[sparse] save {step}: {w['kind']}, {time.monotonic() - t0:.2f}"
@@ -277,7 +681,8 @@ def main() -> int:
     set_deterministic()              # before CUDA initialises
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
-    from repro_torch.kernels.checksum import _build, ops
+    from repro_torch.kernels.checksum import _build as cs_build, ops
+    from repro_torch.kernels.flash_attention import _build as fa_build
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -287,38 +692,65 @@ def main() -> int:
           f"{torch.version.cuda}")
 
     t0 = time.monotonic()
-    _build.lib()
-    print(f"[build] {time.monotonic() - t0:.1f} s "
-          f"({_build.build_info['path']})")
-    for line in _build.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    builds = {"checksum": cs_build.KERNELS,
+              "flash_attention": fa_build.KERNELS}
+    with ThreadPoolExecutor(len(builds)) as ex:   # one nvcc per source
+        list(ex.map(lambda kl: kl.lib(), builds.values()))
+    print(f"[build] all kernels in {time.monotonic() - t0:.1f} s")
+    for name, kl in builds.items():
+        print(f"[build] {name}: {kl.info['seconds']:.1f} s "
+              f"({kl.info['path']})")
+        for line in kl.info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {line.strip()}")
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     rows = phase_kernels(torch, ops)
+    rows["flash_attention"], flash_checked = phase_flash(torch)
 
     by_path = phase_train(torch, ops)
     by_path["sparse-dirt"] = phase_sparse_dirt(torch, ops)
     shutil.rmtree(WORK, ignore_errors=True)
+    flash_seen: set = set()
+    by_path["serve-qwen2-7b"] = phase_serve(torch, flash_seen)
+    by_path["serve-cluster-paper-demo"] = phase_serve_cluster(torch,
+                                                              flash_seen)
+    unchecked = sorted(flash_seen - flash_checked)
+    if unchecked:
+        fail(f"the serving paths gave F1 cases that [flash] did not hold "
+             f"against its plain version: {unchecked}")
+    print(f"[flash] every case F1 ran on the serving paths was checked: "
+          f"{sorted(flash_seen)}")
     # the path each kernel must launch on
-    required = {"checksum_words": "reinit-process-full",
-                "tile_checksums": "cr-node-delta4",
-                "gather_tiles": "sparse-dirt"}
-    for name, path in required.items():
-        if by_path[path][name] <= 0:
-            fail(f"kernel {name} never launched on the {path} path")
+    required = {"checksum_words": ["reinit-process-full"],
+                "tile_checksums": ["cr-node-delta4"],
+                "gather_tiles": ["sparse-dirt"],
+                "flash_attention": ["serve-qwen2-7b",
+                                    "serve-cluster-paper-demo"]}
+    for name, paths in required.items():
+        for path in paths:
+            if by_path[path][name] <= 0:
+                fail(f"kernel {name} never launched on the {path} path")
 
-    src = "src/repro_torch/kernels/checksum/csrc/checksum.cu"
-    replaces = {"tile_checksums": "src/repro/kernels/checksum/kernel.py:79",
-                "checksum_words": "src/repro/kernels/checksum/kernel.py:142",
-                "gather_tiles": "src/repro/kernels/checksum/kernel.py:121"}
+    sources = {"checksum": "src/repro_torch/kernels/checksum/csrc/checksum.cu",
+               "flash": "src/repro_torch/kernels/flash_attention/csrc/"
+                        "flash_attention.cu"}
+    kernels = {  # name: (source, the TPU kernel it replaces)
+        "tile_checksums": (sources["checksum"],
+                           "src/repro/kernels/checksum/kernel.py:79"),
+        "checksum_words": (sources["checksum"],
+                           "src/repro/kernels/checksum/kernel.py:142"),
+        "gather_tiles": (sources["checksum"],
+                         "src/repro/kernels/checksum/kernel.py:121"),
+        "flash_attention": (sources["flash"],
+                            "src/repro/kernels/flash_attention/kernel.py:118"),
+    }
     report = [{"name": name, "route": "cuda", "source": src,
-               "replaces": replaces[name],
+               "replaces": replaces,
                "launches": sum(c[name] for c in by_path.values()),
                "launches_by_path": {p: c[name] for p, c in by_path.items()},
-               **rows[name]} for name in ("tile_checksums",
-                                          "checksum_words", "gather_tiles")]
+               **rows[name]} for name, (src, replaces) in kernels.items()]
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

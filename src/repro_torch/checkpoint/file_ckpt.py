@@ -86,33 +86,16 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import HostCopy, host_leaf
 from repro_torch.kernels.checksum import ops
 from repro_torch.kernels.checksum.ref import TILE_BYTES, scalar_from_tiles
 from repro_torch.scenarios import hooks
 
 from . import serde
 from .manifest import (Manifest, digest_from_checksum, flatten_leaves,
-                       flatten_state, host_leaf, leaf_digest,
+                       flatten_state, leaf_digest,
                        unflatten_state)
 from .serde import dtype_name
-
-
-class _HostCopy:
-    """A CUDA tensor's copy into pinned host memory, started with
-    non_blocking=True on the current stream and recorded by an event;
-    `result()` waits for the event and returns the host leaf."""
-
-    __slots__ = ("host", "event")
-
-    def __init__(self, dev: torch.Tensor):
-        self.host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
-        self.host.copy_(dev, non_blocking=True)
-        self.event = torch.cuda.Event()
-        self.event.record()
-
-    def result(self):
-        self.event.synchronize()
-        return host_leaf(self.host)
 
 
 def _snapshot_device(leaf, *, kick: bool = True):
@@ -120,14 +103,14 @@ def _snapshot_device(leaf, *, kick: bool = True):
     the snapshot from the trainer: step N+1 may overwrite the original
     while the clone drains. With kick=False the clone stays on device —
     the gather path moves only dirty tiles later, so starting the full
-    drain here would defeat it. Returns (leaf, _HostCopy or None)."""
+    drain here would defeat it. Returns (leaf, HostCopy or None)."""
     if isinstance(leaf, torch.Tensor):
         c = leaf.detach().clone()
-        return c, (_HostCopy(c) if kick and c.is_cuda else None)
+        return c, (HostCopy(c) if kick and c.is_cuda else None)
     return np.asarray(leaf), None
 
 
-def _host(v, copy: "_HostCopy | None"):
+def _host(v, copy: "HostCopy | None"):
     """Materialize one snapshot leaf on the host."""
     return copy.result() if copy is not None else host_leaf(v)
 
@@ -345,7 +328,7 @@ class FileCheckpointer:
         # is a base (or the gather path is off) — a delta save will move
         # just its gathered dirty tiles
         kick = not gather_on or self._chain.predict_full(step)
-        copies: Dict[str, _HostCopy] = {}
+        copies: Dict[str, HostCopy] = {}
         if async_:
             snap = {}
             for k, v in dev_flat.items():
@@ -461,7 +444,7 @@ class FileCheckpointer:
             if rng is None or not isinstance(v, torch.Tensor):
                 continue
             g = ops.gather_tiles_device(v, serde.range_tiles(rng))
-            dev[k] = _HostCopy(g) if g.is_cuda else g
+            dev[k] = HostCopy(g) if g.is_cuda else g
         gathered: Dict[str, serde.GatherLeaf] = {}
         for k, rng in plan.entries.items():
             v = snap[k]
@@ -476,7 +459,7 @@ class FileCheckpointer:
                     dt, sh, True, [(0, int(bv.size), bv)])
             elif k in dev:
                 g = dev[k]           # (n_dirty, TILE_WORDS): O(dirt)
-                hb = g.result() if isinstance(g, _HostCopy) else g.numpy()
+                hb = g.result() if isinstance(g, HostCopy) else g.numpy()
                 d2h[0] += hb.nbytes
                 bv = hb.reshape(-1).view(np.uint8)
                 runs, pos = [], 0

@@ -25,8 +25,8 @@ import json
 from typing import Any, Dict
 
 import numpy as np
-import torch
 
+from repro_torch.device import host_leaf
 from repro_torch.kernels.checksum.ops import leaf_checksum
 
 from .serde import _leaf_bytes, dtype_name
@@ -37,14 +37,6 @@ def flatten_state(state) -> Dict[str, Any]:
     Tensors are copied to the host as numpy arrays (bfloat16, which numpy
     lacks, as a CPU tensor)."""
     return {k: host_leaf(v) for k, v in flatten_leaves(state).items()}
-
-
-def host_leaf(v):
-    """A leaf on the host: numpy, or a CPU tensor for bfloat16."""
-    if isinstance(v, torch.Tensor):
-        v = v.detach().cpu()
-        return v if v.dtype == torch.bfloat16 else v.numpy()
-    return np.asarray(v)
 
 
 def flatten_leaves(state) -> Dict[str, Any]:

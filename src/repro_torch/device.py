@@ -9,11 +9,17 @@ before they build anything: deterministic algorithms (so a recovered run
 is bit-identical to a fault-free one on the card), cuBLAS's fixed
 workspace, and no TF32 in float32 matmuls or convolutions. Importing this
 module sets nothing.
+
+Moving leaves between host and device: `to_device` places a host leaf
+(numpy, bfloat16 bits kept, or a CPU tensor) on a device as a tensor of
+its own; `host_leaf` brings a leaf back; `HostCopy` starts a device
+leaf's copy into pinned host memory without waiting for it.
 """
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 
@@ -38,3 +44,42 @@ def set_deterministic() -> None:
     torch.utils.deterministic.fill_uninitialized_memory = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def to_device(a, device: torch.device) -> torch.Tensor:
+    """A host leaf (numpy, whose bfloat16 from ml_dtypes keeps its bits,
+    or a tensor) -> a tensor of its own on `device`."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, copy=True)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device)
+
+
+def host_leaf(v):
+    """A leaf on the host: numpy, or a CPU tensor for bfloat16."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        return v if v.dtype == torch.bfloat16 else v.numpy()
+    return np.asarray(v)
+
+
+class HostCopy:
+    """A CUDA tensor's copy into pinned host memory, started with
+    non_blocking=True on the current stream and recorded by an event;
+    `result()` waits for the event and returns the host leaf."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, dev: torch.Tensor):
+        self.host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+        self.host.copy_(dev, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def result(self):
+        self.event.synchronize()
+        return host_leaf(self.host)

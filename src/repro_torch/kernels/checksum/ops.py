@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._build import check, lib
+from ._build import KERNELS
 from .ref import (MIX_C, TILE_BYTES, TILE_WORDS, checksum_words_ref, n_tiles,
                   tile_checksums_ref)
 
@@ -128,9 +128,9 @@ def tile_checksums_kernel(b: torch.Tensor) -> torch.Tensor:
     b = _aligned(b)
     nt = n_tiles(b.numel())
     out = torch.empty((nt, 3), dtype=torch.int32, device=b.device)
-    code = lib().rt_tile_checksums(b.data_ptr(), b.numel(), nt,
-                                   out.data_ptr(), _stream(b))
-    check(code, "tile_checksums")
+    code = KERNELS.lib().rt_tile_checksums(b.data_ptr(), b.numel(), nt,
+                                           out.data_ptr(), _stream(b))
+    KERNELS.check(code, "tile_checksums")
     LAUNCHES["tile_checksums"] += 1
     return out
 
@@ -140,9 +140,9 @@ def checksum_words_kernel(b: torch.Tensor) -> torch.Tensor:
     b = _aligned(b)
     out = torch.zeros(2, dtype=torch.int32, device=b.device)
     sms = torch.cuda.get_device_properties(b.device).multi_processor_count
-    code = lib().rt_checksum_words(b.data_ptr(), b.numel(), sms,
-                                   out.data_ptr(), _stream(b))
-    check(code, "checksum_words")
+    code = KERNELS.lib().rt_checksum_words(b.data_ptr(), b.numel(), sms,
+                                           out.data_ptr(), _stream(b))
+    KERNELS.check(code, "checksum_words")
     LAUNCHES["checksum_words"] += 1
     return out
 
@@ -160,9 +160,10 @@ def gather_tiles_kernel(b: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((k, TILE_WORDS), dtype=torch.int32, device=b.device)
     if k == 0:
         return out
-    code = lib().rt_gather_tiles(b.data_ptr(), b.numel(), idx.data_ptr(), k,
-                                 out.data_ptr(), _stream(b))
-    check(code, "gather_tiles")
+    code = KERNELS.lib().rt_gather_tiles(b.data_ptr(), b.numel(),
+                                         idx.data_ptr(), k, out.data_ptr(),
+                                         _stream(b))
+    KERNELS.check(code, "gather_tiles")
     LAUNCHES["gather_tiles"] += 1
     return out
 

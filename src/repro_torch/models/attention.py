@@ -1,11 +1,13 @@
-"""Attention, dense path: MHA/GQA with optional qk-norm, QKV bias and RoPE.
+"""Attention, dense path: MHA/GQA with optional qk-norm, QKV bias, RoPE
+and KV-cache decode.
 
-Two interchangeable inner implementations, written as plain torch ops that
-mirror the JAX package's so the two compare like with like:
+Three interchangeable inner implementations (same math):
   - "naive":   materializes (B,H,S,S) scores — reference / tiny tests only.
-  - "chunked": flash-style online softmax over KV chunks — bounded memory;
-               the default and the training path.
-The Pallas flash kernel's counterpart ("pallas") is not ported yet.
+  - "chunked": flash-style online softmax over KV chunks in plain torch
+               ops — bounded memory; the default and the training path.
+  - "pallas":  the reference's name for its Pallas flash kernel; here the
+               hand-written CUDA kernel F1 (`kernels.flash_attention`),
+               forward only.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Any, Optional
 
 import torch
 
+from ..kernels.flash_attention import ops as fa_ops
 from .config import ModelConfig
 from .layers import _init, apply_rope, rmsnorm, rmsnorm_init, torch_dtype
 
@@ -136,15 +139,89 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions, compute_dtype)
-    if impl == "naive":
-        o = naive_attention(q, k, v, causal=causal)
-    elif impl == "chunked":
-        o = chunked_attention(q, k, v, causal=causal)
-    elif impl == "pallas":
-        raise NotImplementedError(
-            "attn_impl='pallas' (flash attention, kernel A4) is not ported "
-            "yet: ROADMAP queue A, slice 2")
-    else:
-        raise ValueError(impl)
-    o = o.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    o = _inner(impl, q, k, v, causal).reshape(B, S, cfg.n_heads * cfg.head_dim)
     return o @ p["wo"].to(compute_dtype)
+
+
+def _inner(impl: str, q, k, v, causal: bool) -> torch.Tensor:
+    if impl == "naive":
+        return naive_attention(q, k, v, causal=causal)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, causal=causal)
+    if impl == "pallas":
+        return fa_ops.flash_attention(q, k, v, causal=causal)
+    raise ValueError(impl)
+
+
+def attention_with_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                      positions=None, impl: str = "chunked",
+                      compute_dtype=torch.bfloat16):
+    """Prefill path: returns (out, k, v) so the caller can build a KV cache."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, cfg, positions, compute_dtype)
+    o = _inner(impl, q, k, v, True).reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return o @ p["wo"].to(compute_dtype), k, v
+
+
+# ------------------------------------------------------------- decode paths
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+                  dtype=torch.bfloat16, device=None):
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     pos, compute_dtype=torch.bfloat16):
+    """One-token decode. x: (B,1,D); cache_*: (B,Smax,Hkv,hd); pos is a
+    scalar (every row at the same position) or a (B,) vector of per-row
+    positions (continuous-batching serving: each slot carries its own
+    clock, so ragged occupancy decodes exactly like B independent
+    single-sequence streams).
+
+    The new K/V are written into the caches in place (the counterpart of
+    the reference's donated `.at[rows, pos].set` and
+    `dynamic_update_slice`), which are also returned: (out (B,1,D),
+    cache_k, cache_v). GQA-grouped einsums: K/V heads are never
+    replicated to H.
+    """
+    B = x.shape[0]
+    pos = torch.as_tensor(pos)
+    per_row = pos.dim() == 1
+    if per_row:
+        pos = pos.to(x.device, torch.long)
+        positions = pos[:, None]
+    else:
+        pos = int(pos)
+        positions = torch.full((B, 1), pos, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions, compute_dtype)
+    if per_row:
+        # row i's K/V lands at its own position: one batched scatter
+        rows = torch.arange(B, device=x.device)
+        cache_k.index_put_((rows, pos), k[:, 0].to(cache_k.dtype))
+        cache_v.index_put_((rows, pos), v[:, 0].to(cache_v.dtype))
+    else:
+        cache_k[:, pos:pos + 1] = k.to(cache_k.dtype)
+        cache_v[:, pos:pos + 1] = v.to(cache_v.dtype)
+    Smax = cache_k.shape[1]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rep = H // Hkv
+    qg = q.reshape(B, Hkv, rep, hd)                       # (B,g,r,hd)
+    kf = cache_k.to(compute_dtype)                        # (B,S,g,hd)
+    vf = cache_v.to(compute_dtype)
+    s = torch.einsum("bgrd,bsgd->bgrs", qg, kf).float()
+    s = s / math.sqrt(hd)
+    kpos = torch.arange(Smax, device=x.device)
+    if per_row:
+        mask = (kpos[None, :] <= pos[:, None])[:, None, None, :]
+    else:
+        mask = (kpos <= pos)[None, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrs,bsgd->bgrd", w.to(compute_dtype), vf)
+    o = o.reshape(B, 1, H * hd)
+    return o @ p["wo"].to(compute_dtype), cache_k, cache_v

@@ -98,3 +98,6 @@ def embedding_init(gen, vocab, d_model, dtype):
 def embed(p: Params, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
     return p["table"].to(compute_dtype)[tokens.long()]
 
+
+def unembed(p: Params, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    return x.to(compute_dtype) @ p["table"].to(compute_dtype).T

@@ -1,4 +1,5 @@
-"""Model API of the dense family: config -> init / forward / loss_fn.
+"""Model API of the dense family: config -> init / forward / loss_fn /
+prefill / decode_step.
 
 The parameter tree has the JAX package's structure and leaf paths
 (`embedding/table`, `stack/layers/...` with a leading L axis, `ln_f`),
@@ -10,13 +11,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-import numpy as np
 import torch
 
-from ..device import resolve
+from ..device import resolve, to_device
+from . import attention as attn_mod
 from .config import ModelConfig
-from .layers import embed, embedding_init, rmsnorm, rmsnorm_init, torch_dtype
-from .transformer import ExecConfig, stack_forward, stack_init
+from .layers import (embed, embedding_init, mlp, rmsnorm, rmsnorm_init,
+                     torch_dtype, unembed)
+from .transformer import (ExecConfig, _layer, _require_dense, stack_forward,
+                          stack_init)
 
 Params = Any
 
@@ -76,6 +79,12 @@ class Model:
         h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
         return h, aux
 
+    def logits(self, params, batch):
+        """(B,S,V) logits — small-model/test path only."""
+        h, aux = self.forward(params, batch)
+        return unembed(params["embedding"], h,
+                       torch_dtype(self.cfg.compute_dtype)), aux
+
     def loss_fn(self, params, batch):
         """Mean token cross-entropy + MoE aux. Returns (loss, metrics)."""
         h, aux = self.forward(params, batch)
@@ -85,6 +94,67 @@ class Model:
                                    n_chunks=self.ec.xent_chunks)
         loss = xent + 0.01 * aux
         return loss, {"xent": xent, "aux": aux}
+
+    # ------------------------------------------------------- decode state
+
+    def init_decode_state(self, batch: int, max_len: int, *, device=None):
+        """Zeroed KV caches {"k", "v"} of shape (L, batch, max_len, Hkv,
+        hd) in the compute dtype, on `device` (`cuda` unless named)."""
+        cfg = self.cfg
+        _require_dense(cfg)
+        return attn_mod.init_kv_cache(cfg, batch, max_len, cfg.n_layers,
+                                      torch_dtype(cfg.compute_dtype),
+                                      resolve(device))
+
+    # ------------------------------------------------------------ prefill
+
+    def prefill(self, params, batch, max_len: int):
+        """Process a prompt; returns (last-position logits (B,1,V), decode
+        state). The returned KV caches are padded to max_len so decode can
+        continue in place."""
+        cfg, ec = self.cfg, self.ec
+        _require_dense(cfg)
+        dt = torch_dtype(cfg.compute_dtype)
+        x = embed(params["embedding"], batch["tokens"], dt)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)[None, :]
+        state = attn_mod.init_kv_cache(cfg, B, max(max_len, S), cfg.n_layers,
+                                       dt, x.device)
+        for i in range(cfg.n_layers):
+            lp = _layer(params["stack"]["layers"], i)
+            o, k, v = attn_mod.attention_with_kv(
+                lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
+                positions=positions, impl=ec.attn_impl, compute_dtype=dt)
+            x = x + o
+            x = x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps), dt)
+            state["k"][i, :, :S] = k.to(dt)
+            state["v"][i, :, :S] = v.to(dt)
+        h = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
+        return unembed(params["embedding"], h, dt), state
+
+    # -------------------------------------------------------- decode step
+
+    def decode_step(self, params, token, state, pos):
+        """One-token decode. token: (B,1) int; pos: a scalar, or a (B,)
+        tensor of per-row positions (the serving engine's continuous
+        batching — see models.attention.decode_attention).
+
+        Returns (logits (B,1,V), state). The KV caches of `state` are
+        updated in place (the reference donates them to the same end)."""
+        cfg = self.cfg
+        _require_dense(cfg)
+        dt = torch_dtype(cfg.compute_dtype)
+        x = embed(params["embedding"], token, dt)
+        for i in range(cfg.n_layers):
+            lp = _layer(params["stack"]["layers"], i)
+            o, _, _ = attn_mod.decode_attention(
+                lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
+                cache_k=state["k"][i], cache_v=state["v"][i], pos=pos,
+                compute_dtype=dt)
+            x = x + o
+            x = x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps), dt)
+        h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        return unembed(params["embedding"], h, dt), state
 
 
 def params_from_jax(tree, device=None):
@@ -100,9 +170,4 @@ def _params_from_jax(tree, device: torch.device):
         return {k: _params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_params_from_jax(v, device) for v in tree)
-    a = np.asarray(tree)
-    if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(a))
-    return t.to(device)
+    return to_device(tree, device)

@@ -24,7 +24,7 @@ Params = Any
 @dataclasses.dataclass(frozen=True)
 class ExecConfig:
     """Execution knobs of the dense path."""
-    attn_impl: str = "chunked"        # naive | chunked (pallas: slice 2)
+    attn_impl: str = "chunked"        # naive | chunked | pallas (F1)
     remat_policy: str = "full"        # none | full
     xent_chunks: int = 4
 

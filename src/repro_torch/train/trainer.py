@@ -32,7 +32,6 @@ import dataclasses
 import time
 from typing import Any, Optional
 
-import numpy as np
 import torch
 
 from repro_torch.checkpoint import FileCheckpointer
@@ -41,7 +40,7 @@ from repro_torch.core import (ClusterView, FailureEvent, FailureType,
                               FaultInjector, RankState, RecoveryReport,
                               ROLLBACK, RollbackSignal, apply_recovery,
                               get_strategy, reinit_main, root_handle_failure)
-from repro_torch.device import resolve
+from repro_torch.device import resolve, to_device
 from repro_torch.models.model import Model
 from repro_torch.scenarios.schema import GRAY_HOWS
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -89,14 +88,6 @@ class StepLog:
 def _clone(state):
     """Device copy of a state tree."""
     return tree_map(lambda a: a.clone(), state)
-
-
-def _to_device(a, device: torch.device) -> torch.Tensor:
-    """A loaded checkpoint leaf (numpy view of a mapped frame, or a CPU
-    tensor) -> a tensor of its own on `device`."""
-    if isinstance(a, torch.Tensor):
-        return a.to(device, copy=True)
-    return torch.from_numpy(np.array(a)).to(device)
 
 
 class Trainer:
@@ -167,7 +158,7 @@ class Trainer:
                                     device=self.device)}
 
     def _load_state(self, state) -> dict:
-        return tree_map(lambda a: _to_device(a, self.device), state)
+        return tree_map(lambda a: to_device(a, self.device), state)
 
     def _sync(self):
         if self.device.type == "cuda":

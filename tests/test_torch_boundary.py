@@ -27,6 +27,14 @@ SLICE_MODULES = [
     "repro_torch.models.attention", "repro_torch.models.transformer",
     "repro_torch.models.model", "repro_torch.configs",
     "repro_torch.launch.train",
+    "repro_torch.kernels._build", "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.flash_attention._build",
+    "repro_torch.checkpoint.memory_ckpt", "repro_torch.scenarios.catalog",
+    "repro_torch.serve", "repro_torch.serve.engine",
+    "repro_torch.serve.replicate", "repro_torch.serve.cluster",
+    "repro_torch.launch.serve",
 ]
 
 _CHILD = r"""
@@ -50,6 +58,10 @@ tr = Trainer(Model(cfg), TokenPipeline(cfg.vocab_size, 2, 16, device="cpu"),
                          device="cpu"))
 res = tr.run()
 assert res["final_step"] == 2, res
+from repro_torch.launch.serve import main as serve_main
+assert serve_main(["--device", "cpu", "--reduced", "--attn-impl", "pallas",
+                   "--requests", "2", "--prompt-len", "5", "--max-new",
+                   "2", "--max-len", "16"]) == 0
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
                 or m == "repro" or m.startswith("repro."))
@@ -121,3 +133,17 @@ def test_params_from_jax_defaults_to_cuda():
     got = params_from_jax(tree, device="cpu")["a"]
     assert got.device.type == "cpu"
     assert np.array_equal(got.numpy(), tree["a"])
+
+
+def test_default_serve_device_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from repro_torch.launch.serve import main
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--reduced", "--requests", "1", "--prompt-len", "4"])
+    finally:                  # the CLI sets global torch state; restore it
+        torch.use_deterministic_algorithms(deterministic)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
