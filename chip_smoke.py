@@ -6,8 +6,9 @@ Phases (any failure exits non-zero):
   1. build every kernel of the port from its source, one `nvcc` per
      source, all started together: the checksum kernels (K1 tile digests,
      K2 whole-leaf digest, K3 dirty-tile gather) from
-     `src/repro_torch/kernels/checksum/csrc` and the flash-attention
-     kernel F1 from `src/repro_torch/kernels/flash_attention/csrc`;
+     `src/repro_torch/kernels/checksum/csrc`, the flash-attention kernel
+     F1 from `src/repro_torch/kernels/flash_attention/csrc` and the
+     selective-scan kernel S1 from `src/repro_torch/kernels/mamba_scan/csrc`;
   2. hold each checksum kernel bit for bit against its plain PyTorch
      version at the main path's shapes (the paper-demo embedding table
      (32768, 768) fp32, a bf16 leaf, an odd-length leaf, a bool leaf, a
@@ -19,6 +20,14 @@ Phases (any failure exits non-zero):
      paper-demo at S 512) in bf16 and fp32, causal and not, to 2e-2
      (bf16) and 2e-5 (fp32); check that a row's bits do not depend on the
      batch; time F1, its plain version and `scaled_dot_product_attention`;
+  3b. [scan] hold S1 (y and h_final) against its plain version to 1e-4
+     at the prefill shapes of the falcon-mamba-7b serving path (B 4,
+     S 512, 384 and 77, d_inner 8192, ds 16), at odd shapes (S 1, S 3,
+     S 130, a d_inner no block divides) and at the reference's test
+     shapes; check that a lane's bits do not depend on the batch and that
+     two launches agree; time S1, its plain version and the port's
+     chunked torch scan (a yardstick: no single PyTorch call computes a
+     selective scan);
   4. the training path at full width: `repro_torch.launch.train --arch
      paper-demo` (batch 8, seq 256) twice with a fault and twice without —
      full saves + a process fault under reinit, and delta saves
@@ -36,12 +45,22 @@ Phases (any failure exits non-zero):
   7. [serve-cluster] the `fast` cells of the serving catalog under both
      reinit and replica at paper-demo full width, each lossless against
      its fault-free run;
-  8. the kernel report. Launches are counted per path: the counts are
+  8. [serve-ssm] the serving path at the full published width and depth
+     of falcon-mamba-7b (Mamba1, 64 layers, 29.1 GB of float32 parameters
+     drawn on the card once qwen2-7b's are freed): the serve CLI with
+     `--attn-impl pallas` and the qwen2-7b phase's requests (S1 must
+     launch exactly 64 layers x 3 prefill calls = 192 times); through the
+     API a straight run, a profiled decode step, a mid-run snapshot/restore
+     (bit-identical transcripts and {h, conv} state), and prefill logits of
+     `pallas` against `chunked`, with each prefill call's wall time;
+  9. the kernel report. Launches are counted per path: the counts are
      set to 0 just before each path is driven and read just after it.
      K2 must launch on the full-save runs, K1 on the delta-cadence runs,
      K3 (which training never reaches: AdamW dirties every tile) on the
-     sparse-dirt saves, and F1 on both serving paths, where every shape,
-     dtype and mask it was given must be one that phase 3 checked.
+     sparse-dirt saves, F1 on both dense serving paths and S1 on the
+     falcon-mamba-7b one; every shape, dtype and mask F1 was given must
+     be one that phase 3 checked, and every shape S1 was given one that
+     phase 3b checked.
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -99,6 +118,33 @@ SERVE_FLAGS = ["--arch", "qwen2-7b", "--attn-impl", "pallas", "--slots",
 # the largest logit (28 layers of bf16 activations, rounded at points
 # that differ once the attention sums differ in order)
 LOGIT_TOL = 5e-2
+# S1's shapes, (b, S, di, ds), all float32 as the prefill passes them.
+# First the prefills of the falcon-mamba-7b serving path (lane-padded to
+# B 4); every shape S1 is given on that path must be among them (checked
+# after the path ran). Then odd shapes and the reference's test shapes
+# (`tests/test_kernels.py`).
+SCAN_SHAPES = {
+    "falcon-mamba-7b prefill S 512": (4, 512, 8192, 16),
+    "falcon-mamba-7b prefill S 384": (4, 384, 8192, 16),
+    "falcon-mamba-7b prefill odd S 77": (4, 77, 8192, 16),
+    "odd: S 1": (2, 1, 8192, 16),
+    "odd: S 3": (1, 3, 8192, 16),
+    "odd: S 130, di 1000": (2, 130, 1000, 16),
+    "reference test (2, 64, 32, 8)": (2, 64, 32, 8),
+    "reference test (1, 256, 128, 16)": (1, 256, 128, 16),
+    "reference test (2, 128, 64, 16)": (2, 128, 64, 16),
+    "reference test (1, 128, 256, 32)": (1, 128, 256, 32),
+}
+# the shape that stands for S1 on the kernels line
+SCAN_MAIN = "falcon-mamba-7b prefill S 512"
+SCAN_TOL = 1e-4            # the reference's own for A5, atol and rtol
+SCAN_CHUNK = 128           # falcon-mamba-7b's ssm_chunk
+SSM_FLAGS = ["--arch", "falcon-mamba-7b", *SERVE_FLAGS[2:]]
+# pallas vs chunked prefill logits of falcon-mamba-7b in float32 compute,
+# where only the scans' order of summation differs: within this share of
+# the largest logit (64 layers; the chunked route against itself at two
+# chunk lengths, printed beside it, shows the spread of that order alone)
+SSM_LOGIT_TOL_F32 = 1e-3
 # the random models' embedding table is drawn at scale 1.0 and tied to the
 # unembedding, so greedy decode repeats the last prompt token whatever the
 # attention computes; the API checks scale it so transcripts depend on it
@@ -134,35 +180,52 @@ def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     from repro_torch.kernels.checksum import ops
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as ms
     ops.reset_launches()
     fa.reset_launches()
+    ms.reset_launches()
 
 
 def launch_counts() -> dict:
     """{kernel name: launches since the last reset} of every kernel."""
     from repro_torch.kernels.checksum import ops
     from repro_torch.kernels.flash_attention import ops as fa
-    return {**ops.LAUNCHES, **fa.LAUNCHES}
+    from repro_torch.kernels.mamba_scan import ops as ms
+    return {**ops.LAUNCHES, **fa.LAUNCHES, **ms.LAUNCHES}
 
 
 @contextlib.contextmanager
-def recording_flash_shapes(seen: set):
-    """Add ((B, Sq, Sk, H, Hkv, hd), dtype, causal) of every F1 launch in
-    the model layout to `seen` while the block runs."""
-    from repro_torch.kernels.flash_attention import ops as fa
-    inner = fa.flash_attention_kernel
+def recording(module, name: str, case, seen: set):
+    """While the block runs, add `case(*args)` of every call of the
+    kernel wrapper `module.name` to `seen`."""
+    inner = getattr(module, name)
 
-    def record(q, k, v, *, causal):
-        shape = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
-                 q.shape[3])
-        seen.add((shape, str(q.dtype).removeprefix("torch."), causal))
-        return inner(q, k, v, causal=causal)
+    def record(*args, **kw):
+        seen.add(case(*args, **kw))
+        return inner(*args, **kw)
 
-    fa.flash_attention_kernel = record
+    setattr(module, name, record)
     try:
         yield
     finally:
-        fa.flash_attention_kernel = inner
+        setattr(module, name, inner)
+
+
+def recording_flash_shapes(seen: set):
+    """((B, Sq, Sk, H, Hkv, hd), dtype, causal) of every F1 launch in the
+    model layout."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    return recording(fa, "flash_attention_kernel", lambda q, k, v, *, causal: (
+        (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+         q.shape[3]), str(q.dtype).removeprefix("torch."), causal), seen)
+
+
+def recording_scan_shapes(seen: set):
+    """((b, S, di, ds), dtype) of every S1 launch."""
+    from repro_torch.kernels.mamba_scan import ops as ms
+    return recording(ms, "selective_scan_kernel", lambda x, dt, B, C, A: (
+        tuple(x.shape) + (B.shape[-1],), str(x.dtype).removeprefix("torch.")),
+        seen)
 
 
 def max_abs_err(a, b) -> int:
@@ -350,6 +413,88 @@ def phase_flash(torch) -> tuple[dict, set]:
     return rows[FLASH_MAIN], checked
 
 
+def scan_work(b, S, di, ds) -> tuple[int, int]:
+    """(operations, bytes) of one selective scan on these inputs: per
+    state and step an exp and 6 FLOPs (dt*A, h*dA + dt*x*B, y += h*C),
+    per channel and step one more (dt*x); x, dt, B, C, A read once, y and
+    h_final written once, all float32."""
+    ops = b * S * di * (7 * ds + 1)
+    nbytes = 4 * (3 * b * S * di + 2 * b * S * ds + di * ds + b * di * ds)
+    return ops, nbytes
+
+
+def scan_inputs(torch, g, shape, model_like: bool):
+    """float32 (x, dt, B, C, A) on the card. `model_like`: as falcon-mamba's
+    prefill gives them (dt = softplus(N(0,1)), A = -(1..ds) from its A_log
+    init); else as the reference's tests draw them (dt = |N| * 0.1, A =
+    -|N| - 0.1)."""
+    b, S, di, ds = shape
+    n = lambda *sz: torch.randn(sz, generator=g, device="cuda")
+    if model_like:
+        dt = torch.nn.functional.softplus(n(b, S, di))
+        A = -torch.arange(1, ds + 1, dtype=torch.float32,
+                          device="cuda").expand(di, ds).contiguous()
+        return n(b, S, di), dt, n(b, S, ds), n(b, S, ds), A
+    return (n(b, S, di) * 0.5, n(b, S, di).abs() * 0.1, n(b, S, ds),
+            n(b, S, ds), -n(di, ds).abs() - 0.1)
+
+
+def phase_scan(torch) -> tuple[dict, set]:
+    """Phase 3b: S1 against its plain version; lane independence; times.
+    Returns S1's row of the kernels line and the (shape, dtype) cases
+    checked."""
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+    from repro_torch.models.mamba import _chunked_scan
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows, checked = {}, set()
+    for name, shape in SCAN_SHAPES.items():
+        b, S, di, ds = shape
+        args = scan_inputs(torch, g, shape, name.startswith("falcon"))
+        y, h = ms.selective_scan_kernel(*args)
+        want_y, want_h = selective_scan_ref(*args)
+        err = max(float((y - want_y).abs().max()),
+                  float((h - want_h).abs().max()))
+        ok = (torch.allclose(y, want_y, atol=SCAN_TOL, rtol=SCAN_TOL)
+              and torch.allclose(h, want_h, atol=SCAN_TOL, rtol=SCAN_TOL))
+        checked.add((shape, "float32"))
+        ms_, host_ms = timed(lambda: ms.selective_scan_kernel(*args))
+        plain_ms = timed(lambda: selective_scan_ref(*args), iters=3,
+                         warmup=1)[0]
+        c = min(SCAN_CHUNK, S)
+        chunked_ms = timed(lambda: _chunked_scan(*args[:4], args[4], c,
+                                                 torch.float32),
+                           iters=5, warmup=1)[0] if S % c == 0 else None
+        n_ops, nbytes = scan_work(*shape)
+        bms, by = bound_ms(nbytes, n_ops)
+        print(f"[scan] {name} {shape} float32: max_abs_err {err:.3g} (tol "
+              f"{SCAN_TOL}, y and h_final); S1 {ms_:.4f} ms (host issue "
+              f"{host_ms:.4f} ms/call), bound {bms:.4f} ms by {by}, plain "
+              f"{plain_ms:.4f} ms, chunked torch scan "
+              + (f"{chunked_ms:.4f} ms" if chunked_ms is not None
+                 else f"n/a (S % {c} != 0, ROADMAP C4)"))
+        if not ok or not (torch.isfinite(y).all() and torch.isfinite(h).all()):
+            fail(f"S1 disagrees with its plain version at {name}")
+        rows[name] = {"max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
+                      "bound_ms": bms, "bound_by": by, "library_ms": None,
+                      "chunked_torch_ms": chunked_ms}
+
+    args = scan_inputs(torch, g, SCAN_SHAPES[SCAN_MAIN], True)
+    y, h = ms.selective_scan_kernel(*args)
+    y2, h2 = ms.selective_scan_kernel(*args)
+    if not (torch.equal(y, y2) and torch.equal(h, h2)):
+        fail("two S1 launches on the same inputs differ")
+    for b in range(args[0].shape[0]):
+        yb, hb = ms.selective_scan_kernel(
+            *(t[b:b + 1] for t in args[:4]), args[4])
+        if not (torch.equal(y[b:b + 1], yb) and torch.equal(h[b:b + 1], hb)):
+            fail(f"S1 lane {b} differs from the same row launched alone")
+    print("[scan] lane independence: each lane of the B=4 falcon-mamba-7b "
+          "S 512 launch is bitwise equal to that row launched alone, and two "
+          "launches agree bit for bit")
+    return rows[SCAN_MAIN], checked
+
+
 def _serve_prompts(vocab: int, seed: int = 0) -> list:
     import numpy as np
     rng = np.random.default_rng(seed)
@@ -357,9 +502,11 @@ def _serve_prompts(vocab: int, seed: int = 0) -> list:
             for n in SERVE_PROMPTS]
 
 
-def phase_serve(torch, seen: set) -> dict:
-    """Phase 6: qwen2-7b at full width and depth. Returns the launches of
-    the serve CLI's run and adds F1's cases on it to `seen`."""
+def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
+    """Phases 6 and 8: `arch` at full width and depth, served with
+    `--attn-impl pallas`, where `kernel` must launch once per layer and
+    prefill call. Returns the launches of the serve CLI's run; `recording`
+    records the kernel's cases on it."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models.model import Model
@@ -367,28 +514,35 @@ def phase_serve(torch, seen: set) -> dict:
     from repro_torch.serve import Request, ServeEngine
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config("qwen2-7b")
-    print(f"[serve] qwen2-7b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}, vocab "
-          f"{cfg.vocab_size}, qkv_bias {cfg.qkv_bias}; depth not cut")
+    cfg = get_config(arch)
+    if cfg.family == "ssm":
+        print(f"[{tag}] {arch}: {cfg.n_layers} Mamba1 layers, d_model "
+              f"{cfg.d_model}, d_inner {cfg.d_inner}, ds {cfg.ssm_state}, "
+              f"conv {cfg.ssm_conv}, vocab {cfg.vocab_size}; depth not cut")
+    else:
+        print(f"[{tag}] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}, "
+              f"vocab {cfg.vocab_size}, qkv_bias {cfg.qkv_bias}; depth not "
+              f"cut")
+    flags = ["--arch", arch, *SERVE_FLAGS[2:]]
     buf = io.StringIO()
     reset_launches()
-    with contextlib.redirect_stdout(buf), recording_flash_shapes(seen):
-        rc = serve_main(SERVE_FLAGS)
+    with contextlib.redirect_stdout(buf), recording:
+        rc = serve_main(flags)
     torch.cuda.synchronize()
     launches = launch_counts()
     if rc != 0:
-        fail("serve CLI failed")
+        fail(f"{arch} serve CLI failed")
     out = json.loads(buf.getvalue())
-    print(f"[serve] CLI {' '.join(SERVE_FLAGS)}: {json.dumps(out)}")
+    print(f"[{tag}] CLI {' '.join(flags)}: {json.dumps(out)}")
     want = cfg.n_layers * out["prefill_calls"]
     if out["completed"] != len(SERVE_PROMPTS):
-        fail("serve CLI did not complete every request")
-    if launches["flash_attention"] != want or want == 0:
-        fail(f"F1 launched {launches['flash_attention']} times on the serve "
-             f"path, expected {cfg.n_layers} layers x "
+        fail(f"{arch} serve CLI did not complete every request")
+    if launches[kernel] != want or want == 0:
+        fail(f"{kernel} launched {launches[kernel]} times on the {arch} "
+             f"serve path, expected {cfg.n_layers} layers x "
              f"{out['prefill_calls']} prefills = {want}")
-    print(f"[serve] launches {launches}")
+    print(f"[{tag}] launches {launches}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -399,7 +553,7 @@ def phase_serve(torch, seen: set) -> dict:
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    print(f"[serve] qwen2-7b init: {n_params} float32 parameters drawn on "
+    print(f"[{tag}] {arch} init: {n_params} float32 parameters drawn on "
           f"the card in {time.monotonic() - t0:.2f} s")
     params["embedding"]["table"].mul_(TABLE_SCALE)
     prompts = _serve_prompts(cfg.vocab_size)
@@ -423,8 +577,8 @@ def phase_serve(torch, seen: set) -> dict:
     want = {r.rid: r.out for r in straight.run_until_drained()}
     wall = time.monotonic() - t0
     ttft = sorted(first_at.values())
-    print(f"[serve] straight run: {len(want)} requests, {n_tok[0]} tokens in "
-          f"{wall:.2f} s; time to first token {ttft[0]:.3f} s (first "
+    print(f"[{tag}] straight run: {len(want)} requests, {n_tok[0]} tokens "
+          f"in {wall:.2f} s; time to first token {ttft[0]:.3f} s (first "
           f"request) to {ttft[-1]:.3f} s (last, queued behind the first "
           f"wave); {(n_tok[0] - len(want)) / (wall - ttft[0]):.1f} decode "
           f"tokens/s after the first token")
@@ -432,8 +586,8 @@ def phase_serve(torch, seen: set) -> dict:
     for _ in range(8):
         first.step()
     snap = first.snapshot()
-    # keep decoding (the live caches move on), under the profiler: where
-    # a decode step's time goes on the card
+    # keep decoding (the live state moves on in place), under the
+    # profiler: where a decode step's time goes on the card
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -447,49 +601,96 @@ def phase_serve(torch, seen: set) -> dict:
               if e.device_type == DeviceType.CUDA]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3 / 4
-    print(f"[serve] profile of 4 decode steps (4 slots): {step_ms:.1f} ms "
+    print(f"[{tag}] profile of 4 decode steps (4 slots): {step_ms:.1f} ms "
           f"a step on the host clock, {device_ms:.1f} ms of device time a "
           f"step; top kernels by device time a step:")
     for e in events[:6]:
-        print(f"[serve]   {e.self_device_time_total / 1e3 / 4:8.2f} ms "
+        print(f"[{tag}]   {e.self_device_time_total / 1e3 / 4:8.2f} ms "
               f"x{e.count // 4:<5d} {e.key[:90]}")
     second = ServeEngine(model, params, n_slots=4, max_len=1024)
     second.restore(snap)
     got = {r.rid: r.out for r in second.run_until_drained()}
     if got != want:
-        fail("a snapshot/restore in the middle changed the transcripts")
+        fail(f"{arch}: a snapshot/restore in the middle changed the "
+             "transcripts")
     if not all(torch.equal(straight.state[k], second.state[k])
                for k in straight.state):
-        fail("a snapshot/restore in the middle changed the final KV state")
-    print(f"[serve] snapshot at step 8, 4 more steps, restore into a new "
-          f"engine: transcripts of {len(got)} requests and the final KV "
-          f"state bit-identical to the straight run; "
-          f"{len({tuple(v) for v in want.values()})} distinct transcripts")
+        fail(f"{arch}: a snapshot/restore in the middle changed the final "
+             f"decode state {sorted(straight.state)}")
+    print(f"[{tag}] snapshot at step 8, 4 more steps, restore into a new "
+          f"engine: transcripts of {len(got)} requests and the final decode "
+          f"state {sorted(straight.state)} bit-identical to the straight "
+          f"run; {len({tuple(v) for v in want.values()})} distinct "
+          f"transcripts")
     del straight, first, second, snap
 
+    def prefill(m, toks):
+        """(last logits, wall ms of the second of two calls: the first
+        pays cuBLAS's choice of algorithms for a new shape)."""
+        with torch.no_grad():
+            m.prefill(params, {"tokens": toks}, max_len=1024)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, _ = m.prefill(params, {"tokens": toks}, max_len=1024)
+            torch.cuda.synchronize()
+        return logits[:, -1].float(), (time.perf_counter() - t) * 1e3
+
     chunked = Model(cfg, ExecConfig(attn_impl="chunked"))
+    ssm = cfg.family == "ssm"
+    if ssm:
+        # a random 64-layer Mamba in bf16 amplifies the scans' other order
+        # of summation far past any tight tolerance (so does the chunked
+        # route against itself at another chunk length, printed below):
+        # S1 is held to the chunked route in float32 compute, where
+        # nothing but that order differs
+        f32 = cfg.replace(compute_dtype="float32")
+        held = (Model(f32, ExecConfig(attn_impl="pallas")),
+                Model(f32, ExecConfig(attn_impl="chunked")))
+        tol, held_dtype = SSM_LOGIT_TOL_F32, "float32"
+    else:
+        held, tol, held_dtype = (model, chunked), LOGIT_TOL, "bfloat16"
     for rows in (prompts[:4], prompts[4:7], prompts[7:]):
         n = len(rows[0])
         toks = torch.tensor(rows, device="cuda")
-        with torch.no_grad():
-            lp, _ = model.prefill(params, {"tokens": toks}, max_len=1024)
-            lc, _ = chunked.prefill(params, {"tokens": toks}, max_len=1024)
-        lp, lc = lp[:, -1].float(), lc[:, -1].float()
+        lp, p_ms = prefill(model, toks)
+        lc, c_ms = prefill(chunked, toks)
+        served = (f"wall {p_ms:.1f} ms pallas, {c_ms:.1f} ms chunked "
+                  f"({cfg.compute_dtype}, the served dtype)")
+        if ssm:
+            rel = float((lp - lc).abs().max()) / float(lc.abs().max())
+            same = int((lp.argmax(-1) == lc.argmax(-1)).sum())
+            served += (f", logits max diff {rel:.3g} of the largest, first "
+                       f"tokens equal on {same} of {len(rows)} lanes; held "
+                       f"in {held_dtype}")
+            (lp, p_ms), (lc, c_ms) = (prefill(m, toks) for m in held)
+            served += f" (wall {p_ms:.1f} ms pallas, {c_ms:.1f} ms chunked)"
         scale = float(lc.abs().max())
         rel = float((lp - lc).abs().max()) / scale
         tp, tc = lp.argmax(-1), lc.argmax(-1)
         for b in range(len(rows)):
             gap = float(lc[b, tc[b]] - lc[b, tp[b]])
-            if gap > LOGIT_TOL * scale:
+            if gap > tol * scale:
                 fail(f"prompt {n}: pallas's first token {int(tp[b])} is "
                      f"{gap:.3g} below chunked's {int(tc[b])}")
-        print(f"[serve] prefill S {n} x {len(rows)}: pallas vs chunked "
-              f"logits max diff {rel:.3g} of the largest (tol {LOGIT_TOL}); "
-              f"first tokens equal on {int((tp == tc).sum())} of "
+        print(f"[{tag}] prefill S {n} x {len(rows)}: {served}: pallas vs "
+              f"chunked logits max diff {rel:.3g} of the largest (tol "
+              f"{tol}); first tokens equal on {int((tp == tc).sum())} of "
               f"{len(rows)} lanes")
-        if rel > LOGIT_TOL:
+        if rel > tol:
             fail(f"pallas and chunked prefill logits differ at S {n}")
-    print(f"[serve] peak device memory of the API checks "
+    if ssm:
+        toks = torch.tensor(prompts[:4], device="cuda")
+        for c in (cfg, f32):
+            lc = prefill(Model(c, ExecConfig(attn_impl="chunked")), toks)[0]
+            l64 = prefill(Model(c.replace(ssm_chunk=64),
+                                ExecConfig(attn_impl="chunked")), toks)[0]
+            rel = float((l64 - lc).abs().max()) / float(lc.abs().max())
+            print(f"[{tag}] yardstick, {c.compute_dtype}: the chunked route "
+                  f"at ssm_chunk 64 against 128, S 512 x 4: logits max diff "
+                  f"{rel:.3g} of the largest; first tokens equal on "
+                  f"{int((l64.argmax(-1) == lc.argmax(-1)).sum())} of 4 "
+                  f"lanes")
+    print(f"[{tag}] peak device memory of the API checks "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     del params
     gc.collect()
@@ -683,6 +884,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is false")
     from repro_torch.kernels.checksum import _build as cs_build, ops
     from repro_torch.kernels.flash_attention import _build as fa_build
+    from repro_torch.kernels.mamba_scan import _build as ms_build
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -693,7 +895,8 @@ def main() -> int:
 
     t0 = time.monotonic()
     builds = {"checksum": cs_build.KERNELS,
-              "flash_attention": fa_build.KERNELS}
+              "flash_attention": fa_build.KERNELS,
+              "selective_scan": ms_build.KERNELS}
     with ThreadPoolExecutor(len(builds)) as ex:   # one nvcc per source
         list(ex.map(lambda kl: kl.lib(), builds.values()))
     print(f"[build] all kernels in {time.monotonic() - t0:.1f} s")
@@ -708,26 +911,40 @@ def main() -> int:
     os.makedirs(WORK)
     rows = phase_kernels(torch, ops)
     rows["flash_attention"], flash_checked = phase_flash(torch)
+    rows["selective_scan"], scan_checked = phase_scan(torch)
 
     by_path = phase_train(torch, ops)
     by_path["sparse-dirt"] = phase_sparse_dirt(torch, ops)
     shutil.rmtree(WORK, ignore_errors=True)
     flash_seen: set = set()
-    by_path["serve-qwen2-7b"] = phase_serve(torch, flash_seen)
+    by_path["serve-qwen2-7b"] = phase_serve(
+        torch, "qwen2-7b", "flash_attention",
+        recording_flash_shapes(flash_seen), "serve")
     by_path["serve-cluster-paper-demo"] = phase_serve_cluster(torch,
                                                               flash_seen)
+    scan_seen: set = set()
+    by_path["serve-falcon-mamba-7b"] = phase_serve(
+        torch, "falcon-mamba-7b", "selective_scan",
+        recording_scan_shapes(scan_seen), "serve-ssm")
     unchecked = sorted(flash_seen - flash_checked)
     if unchecked:
         fail(f"the serving paths gave F1 cases that [flash] did not hold "
              f"against its plain version: {unchecked}")
     print(f"[flash] every case F1 ran on the serving paths was checked: "
           f"{sorted(flash_seen)}")
+    unchecked = sorted(scan_seen - scan_checked)
+    if unchecked:
+        fail(f"the serving path gave S1 cases that [scan] did not hold "
+             f"against its plain version: {unchecked}")
+    print(f"[scan] every case S1 ran on the serving path was checked: "
+          f"{sorted(scan_seen)}")
     # the path each kernel must launch on
     required = {"checksum_words": ["reinit-process-full"],
                 "tile_checksums": ["cr-node-delta4"],
                 "gather_tiles": ["sparse-dirt"],
                 "flash_attention": ["serve-qwen2-7b",
-                                    "serve-cluster-paper-demo"]}
+                                    "serve-cluster-paper-demo"],
+                "selective_scan": ["serve-falcon-mamba-7b"]}
     for name, paths in required.items():
         for path in paths:
             if by_path[path][name] <= 0:
@@ -735,7 +952,9 @@ def main() -> int:
 
     sources = {"checksum": "src/repro_torch/kernels/checksum/csrc/checksum.cu",
                "flash": "src/repro_torch/kernels/flash_attention/csrc/"
-                        "flash_attention.cu"}
+                        "flash_attention.cu",
+               "scan": "src/repro_torch/kernels/mamba_scan/csrc/"
+                       "selective_scan.cu"}
     kernels = {  # name: (source, the TPU kernel it replaces)
         "tile_checksums": (sources["checksum"],
                            "src/repro/kernels/checksum/kernel.py:79"),
@@ -745,6 +964,8 @@ def main() -> int:
                          "src/repro/kernels/checksum/kernel.py:121"),
         "flash_attention": (sources["flash"],
                             "src/repro/kernels/flash_attention/kernel.py:118"),
+        "selective_scan": (sources["scan"],
+                           "src/repro/kernels/mamba_scan/kernel.py:79"),
     }
     report = [{"name": name, "route": "cuda", "source": src,
                "replaces": replaces,

@@ -6,8 +6,11 @@
 
 The flags and JSON output of `repro.launch.serve`, plus `--device`
 (default `cuda`; `cpu` only when asked) and `--attn-impl` (the execution
-knob `ExecConfig.attn_impl`: `pallas` runs prefill attention through the
-CUDA kernel F1). `--prompt-len` takes one length for every request or a
+knob `ExecConfig.attn_impl`). `pallas` runs the port's kernels on
+prefill: attention through the CUDA kernel F1 in a dense model (qwen2-7b,
+paper-demo), and every layer's selective scan through the CUDA kernel S1
+in an ssm model (`--arch falcon-mamba-7b`, Mamba1); decode runs no kernel
+of the port. `--prompt-len` takes one length for every request or a
 comma-separated length per request. Parameters are random, drawn from
 seed 0 on the device.
 """
@@ -43,7 +46,10 @@ def main(argv=None):
     ap.add_argument("--snapshot-every", type=int, default=0,
                     help="exercise serving fault tolerance")
     ap.add_argument("--attn-impl", default="chunked",
-                    choices=["naive", "chunked", "pallas"])
+                    choices=["naive", "chunked", "pallas"],
+                    help="pallas: prefill through the port's CUDA kernels "
+                         "(attention by F1; an ssm model's selective scan "
+                         "by S1)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cpu only when asked)")
     args = ap.parse_args(argv)

@@ -1,0 +1,260 @@
+"""Mamba1 (selective scan) block of the ssm family: init, the chunked
+forward, prefill with state capture and single-token decode.
+
+The reference's training forward runs a *chunked* scan: a sequential loop
+over sequence chunks carrying the SSM state, with an associative scan
+inside each chunk. The port keeps that route (`mamba1_forward`, and
+prefill under every `attn_impl` but "pallas"); its intra-chunk scan is a
+log-depth doubling scan in torch ops, which multiplies decay factors and
+never divides by them (a cumulative product of `exp(dt*A)` underflows to 0
+at real `dt` and `A`).
+
+The reference's docstring names its Pallas kernel A5 as what replaces the
+chunked scan on the TPU, but only its `mamba1_forward_pallas` binding
+calls it. The port routes prefill through the kernel (S1 on the card, its
+plain version on the CPU) when `ExecConfig.attn_impl == "pallas"`, the
+knob that already means "the repo's kernels" (ROADMAP C5). The training
+forward stays on the chunked scan: S1 has no backward.
+
+Two faults of the reference's prefill are not copied: a prompt shorter
+than `ssm_conv - 1` gets a conv state left-padded with zeros (the causal
+conv's zero initial state) instead of a short one (ROADMAP C3), and the
+chunked route raises a ValueError naming its chunk rule instead of failing
+in a reshape (C4). Mamba2 (SSD) is not ported yet: ROADMAP queue A item 6.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.mamba_scan import ops as scan_ops
+from .config import ModelConfig
+from .layers import _init, torch_dtype
+
+Params = Any
+
+
+def _require_mamba1(cfg: ModelConfig):
+    if cfg.ssm_version != 1:
+        raise NotImplementedError(
+            f"ssm_version {cfg.ssm_version} (mamba2, SSD) is not ported "
+            "yet: only Mamba1 is (ROADMAP queue A, item 6)")
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus: log(1 + exp(x)) as logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+# ------------------------------------------------------------------- mamba1
+
+def mamba1_init(gen, cfg: ModelConfig, dtype, lead=()):
+    D, di, ds = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    dt_rank = max(D // 16, 1)
+    tdt = torch_dtype(dtype)
+    full = lambda shape, v: torch.full((*lead, *shape), v, dtype=tdt,
+                                       device=gen.device)
+    a_log = torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                   device=gen.device).to(tdt))
+    return {
+        "in_x": _init(gen, (*lead, D, di), dtype),
+        "in_z": _init(gen, (*lead, D, di), dtype),
+        "conv_w": _init(gen, (*lead, cfg.ssm_conv, di), dtype, scale=0.5),
+        "conv_b": full((di,), 0.0),
+        "x_proj": _init(gen, (*lead, di, dt_rank + 2 * ds), dtype),
+        "dt_proj": _init(gen, (*lead, dt_rank, di), dtype),
+        "dt_bias": full((di,), 0.0),
+        "A_log": a_log.expand(*lead, di, ds).contiguous(),
+        "D": full((di,), 1.0),
+        "out_proj": _init(gen, (*lead, di, D), dtype),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 init_state: torch.Tensor | None = None):
+    """Depthwise causal conv. x: (B,S,C); w: (K,C). Returns (y, last K-1
+    rows of [init_state, x])."""
+    K, S = w.shape[0], x.shape[1]
+    if init_state is None:
+        init_state = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
+    xp = torch.cat([init_state, x], dim=1)
+    y = sum(xp[:, i:i + S] * w[i] for i in range(K))
+    return y + b, xp[:, xp.shape[1] - (K - 1):]
+
+
+def _chunk_scan_m1(dA, dBx, h0):
+    """Intra-chunk scan. dA, dBx: (B,c,di,ds); h0: (B,di,ds). Returns the
+    per-step states (B,c,di,ds) and the final carry (B,di,ds).
+
+    The reference's `jax.lax.associative_scan` over (a, b) pairs with
+    combine((al, bl), (ar, br)) = (al*ar, ar*bl + br), as a Hillis-Steele
+    doubling scan: log2(c) rounds of elementwise products."""
+    a = torch.cat([torch.ones_like(dA[:, :1]), dA], dim=1)
+    b = torch.cat([h0[:, None], dBx], dim=1)
+    k = 1
+    while k < a.shape[1]:
+        b = torch.cat([b[:, :k], a[:, k:] * b[:, :-k] + b[:, k:]], dim=1)
+        a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1)
+        k *= 2
+    return b[:, 1:], b[:, -1]
+
+
+def _chunk_len(cfg: ModelConfig, S: int) -> int:
+    c = min(cfg.ssm_chunk, S)
+    if c <= 0 or S % c:
+        raise ValueError(
+            f"the chunked scan needs S % min(ssm_chunk, S) == 0, got S {S} "
+            f"with ssm_chunk {cfg.ssm_chunk} (ROADMAP C4); "
+            "attn_impl='pallas' takes any S")
+    return c
+
+
+def _mamba1_inputs(p, x, cfg: ModelConfig, cd, conv_state=None):
+    """The projections around the scan. x: (B,S,D) -> (xi_pre, xi, z, dt,
+    Bc, Cc, A, new conv state): xi_pre before the conv, xi after conv and
+    silu, dt after softplus, all (B,S,di) in `cd` but Bc, Cc (B,S,ds) and
+    A = -exp(A_log) (di,ds) float32."""
+    ds = cfg.ssm_state
+    dt_rank = max(cfg.d_model // 16, 1)
+    xc = x.to(cd)
+    xi_pre = xc @ p["in_x"].to(cd)
+    z = xc @ p["in_z"].to(cd)
+    xi, conv_out = _causal_conv(xi_pre, p["conv_w"].to(cd),
+                                p["conv_b"].to(cd), conv_state)
+    xi = F.silu(xi)
+    proj = xi @ p["x_proj"].to(cd)
+    dt, Bc, Cc = torch.split(proj, [dt_rank, ds, ds], dim=-1)
+    dt = _softplus(dt @ p["dt_proj"].to(cd) + p["dt_bias"].to(cd))
+    A = -torch.exp(p["A_log"].float())
+    return xi_pre, xi, z, dt, Bc, Cc, A, conv_out
+
+
+def _chunked_scan(xi, dt, Bc, Cc, A, c: int, cd):
+    """The reference's chunked scan from h = 0: (y (B,S,di) in `cd`,
+    h_final (B,di,ds) float32)."""
+    bsz, S, di = xi.shape
+    h = torch.zeros((bsz, di, A.shape[1]), dtype=torch.float32,
+                    device=xi.device)
+    ys = []
+    for j in range(0, S, c):
+        dtf = dt[:, j:j + c].float()
+        dA = torch.exp(dtf[..., None] * A)                   # (B,c,di,ds)
+        dBx = (dtf * xi[:, j:j + c].float())[..., None] \
+            * Bc[:, j:j + c].float()[..., None, :]
+        hs, h = _chunk_scan_m1(dA, dBx, h)
+        ys.append(torch.einsum("bcds,bcs->bcd", hs,
+                               Cc[:, j:j + c].float()).to(cd))
+    return torch.cat(ys, dim=1), h
+
+
+def _kernel_scan(xi, dt, Bc, Cc, A, cd):
+    """The scan through `kernels.mamba_scan` (S1 on the card), in fp32 as
+    the reference's binding passes it: (y in `cd`, h_final float32)."""
+    y, h = scan_ops.mamba_scan(xi.float(), dt.float(), Bc.float(),
+                               Cc.float(), A)
+    return y.to(cd), h
+
+
+def _mamba1_out(p, y, xi, z, cd):
+    y = y + xi * p["D"].to(cd)
+    y = y * F.silu(z)
+    return y @ p["out_proj"].to(cd)
+
+
+def mamba1_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                   compute_dtype=torch.bfloat16):
+    """x: (B,S,D) -> (B,S,D). Chunked selective scan, whatever attn_impl
+    is: it is the route with a gradient."""
+    c = _chunk_len(cfg, x.shape[1])
+    _, xi, z, dt, Bc, Cc, A, _ = _mamba1_inputs(p, x, cfg, compute_dtype)
+    y, _ = _chunked_scan(xi, dt, Bc, Cc, A, c, compute_dtype)
+    return _mamba1_out(p, y, xi, z, compute_dtype)
+
+
+def mamba1_init_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                      device=None, lead=()):
+    di, ds, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    shapes = {"h": (batch, di, ds), "conv": (batch, K - 1, di)}
+    return {k: torch.zeros((*lead, *s), dtype=dtype, device=device)
+            for k, s in shapes.items()}
+
+
+def mamba1_step(p: Params, x: torch.Tensor, state, cfg: ModelConfig,
+                compute_dtype=torch.bfloat16):
+    """Single-token decode. x: (B,1,D); state: {h: (B,di,ds), conv:
+    (B,K-1,di)}. Returns (out (B,1,D), new state)."""
+    cd = compute_dtype
+    _, xi, z, dt, Bc, Cc, A, conv_state = _mamba1_inputs(
+        p, x, cfg, cd, state["conv"].to(cd))
+    dtf = dt[:, 0].float()                                   # (B,di)
+    dA = torch.exp(dtf[..., None] * A)                       # (B,di,ds)
+    dBx = (dtf * xi[:, 0].float())[..., None] \
+        * Bc[:, 0].float()[:, None, :]
+    h = state["h"] * dA + dBx
+    y = torch.einsum("bds,bs->bd", h, Cc[:, 0].float())
+    out = _mamba1_out(p, y.to(cd)[:, None], xi, z, cd)
+    return out, {"h": h, "conv": conv_state.to(state["conv"].dtype)}
+
+
+def mamba1_forward_with_state(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                              compute_dtype=torch.bfloat16, *,
+                              impl: str = "chunked"):
+    """Prefill: the forward plus the final recurrent state {h: (B,di,ds),
+    conv: (B,K-1,di)}, both float32. `impl == "pallas"` runs the scan
+    through `kernels.mamba_scan` (S1 on the card; any S), any other value
+    the reference's chunked scan (S % min(ssm_chunk, S) == 0)."""
+    cd = compute_dtype
+    S, K = x.shape[1], cfg.ssm_conv
+    c = None if impl == "pallas" else _chunk_len(cfg, S)
+    xi_pre, xi, z, dt, Bc, Cc, A, _ = _mamba1_inputs(p, x, cfg, cd)
+    tail = xi_pre[:, max(S - (K - 1), 0):].float()
+    # a prompt shorter than K-1: the rows before it are the conv's zeros
+    conv = F.pad(tail, (0, 0, K - 1 - tail.shape[1], 0))
+    if c is None:
+        y, h = _kernel_scan(xi, dt, Bc, Cc, A, cd)
+    else:
+        y, h = _chunked_scan(xi, dt, Bc, Cc, A, c, cd)
+    return _mamba1_out(p, y, xi, z, cd), {"h": h, "conv": conv}
+
+
+def mamba1_forward_pallas(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                          compute_dtype=torch.bfloat16):
+    """`mamba1_forward` with the scan through `kernels.mamba_scan` (S1 on
+    the card) instead of the chunked scan: the reference's binding of its
+    kernel A5. Forward only."""
+    _, xi, z, dt, Bc, Cc, A, _ = _mamba1_inputs(p, x, cfg, compute_dtype)
+    y, _ = _kernel_scan(xi, dt, Bc, Cc, A, compute_dtype)
+    return _mamba1_out(p, y, xi, z, compute_dtype)
+
+
+# ------------------------------------------------------------- dispatchers
+
+def mamba_init(gen, cfg: ModelConfig, dtype, lead=()):
+    _require_mamba1(cfg)
+    return mamba1_init(gen, cfg, dtype, lead)
+
+
+def mamba_forward(p, x, cfg: ModelConfig, compute_dtype=torch.bfloat16):
+    _require_mamba1(cfg)
+    return mamba1_forward(p, x, cfg, compute_dtype)
+
+
+def mamba_init_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     device=None, lead=()):
+    _require_mamba1(cfg)
+    return mamba1_init_state(cfg, batch, dtype, device, lead)
+
+
+def mamba_step(p, x, state, cfg: ModelConfig, compute_dtype=torch.bfloat16):
+    _require_mamba1(cfg)
+    return mamba1_step(p, x, state, cfg, compute_dtype)
+
+
+def mamba_forward_with_state(p, x, cfg: ModelConfig,
+                             compute_dtype=torch.bfloat16, *,
+                             impl: str = "chunked"):
+    _require_mamba1(cfg)
+    return mamba1_forward_with_state(p, x, cfg, compute_dtype, impl=impl)

@@ -1,5 +1,5 @@
-"""Model API of the dense family: config -> init / forward / loss_fn /
-prefill / decode_step.
+"""Model API of the dense and ssm (Mamba1) families: config -> init /
+forward / loss_fn / prefill / decode_step.
 
 The parameter tree has the JAX package's structure and leaf paths
 (`embedding/table`, `stack/layers/...` with a leading L axis, `ln_f`),
@@ -15,11 +15,12 @@ import torch
 
 from ..device import resolve, to_device
 from . import attention as attn_mod
+from . import mamba as mamba_mod
 from .config import ModelConfig
 from .layers import (embed, embedding_init, mlp, rmsnorm, rmsnorm_init,
                      torch_dtype, unembed)
-from .transformer import (ExecConfig, _layer, _require_dense, stack_forward,
-                          stack_init)
+from .transformer import (ExecConfig, _layer, _require_ported,
+                          stack_forward, stack_init)
 
 Params = Any
 
@@ -98,10 +99,16 @@ class Model:
     # ------------------------------------------------------- decode state
 
     def init_decode_state(self, batch: int, max_len: int, *, device=None):
-        """Zeroed KV caches {"k", "v"} of shape (L, batch, max_len, Hkv,
-        hd) in the compute dtype, on `device` (`cuda` unless named)."""
+        """The zeroed decode state on `device` (`cuda` unless named):
+        dense, KV caches {"k", "v"} of shape (L, batch, max_len, Hkv, hd)
+        in the compute dtype; ssm, {"h": (L, batch, di, ds), "conv":
+        (L, batch, K-1, di)} in float32, whatever max_len is."""
         cfg = self.cfg
-        _require_dense(cfg)
+        _require_ported(cfg)
+        if cfg.family == "ssm":
+            return mamba_mod.mamba_init_state(cfg, batch, torch.float32,
+                                              resolve(device),
+                                              lead=(cfg.n_layers,))
         return attn_mod.init_kv_cache(cfg, batch, max_len, cfg.n_layers,
                                       torch_dtype(cfg.compute_dtype),
                                       resolve(device))
@@ -111,11 +118,14 @@ class Model:
     def prefill(self, params, batch, max_len: int):
         """Process a prompt; returns (last-position logits (B,1,V), decode
         state). The returned KV caches are padded to max_len so decode can
-        continue in place."""
+        continue in place; an ssm state is the recurrent state after the
+        prompt (`attn_impl="pallas"`: scanned by S1 on the card)."""
         cfg, ec = self.cfg, self.ec
-        _require_dense(cfg)
+        _require_ported(cfg)
         dt = torch_dtype(cfg.compute_dtype)
         x = embed(params["embedding"], batch["tokens"], dt)
+        if cfg.family == "ssm":
+            return self._prefill_ssm(params, x, dt)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None, :]
         state = attn_mod.init_kv_cache(cfg, B, max(max_len, S), cfg.n_layers,
@@ -132,6 +142,21 @@ class Model:
         h = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
         return unembed(params["embedding"], h, dt), state
 
+    def _prefill_ssm(self, params, x, dt):
+        cfg = self.cfg
+        hs, convs = [], []
+        for i in range(cfg.n_layers):
+            lp = _layer(params["stack"]["layers"], i)
+            y, st = mamba_mod.mamba_forward_with_state(
+                lp["mamba"], rmsnorm(lp["ln"], x, cfg.norm_eps), cfg, dt,
+                impl=self.ec.attn_impl)
+            x = x + y
+            hs.append(st["h"])
+            convs.append(st["conv"])
+        h = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
+        state = {"h": torch.stack(hs), "conv": torch.stack(convs)}
+        return unembed(params["embedding"], h, dt), state
+
     # -------------------------------------------------------- decode step
 
     def decode_step(self, params, token, state, pos):
@@ -139,14 +164,23 @@ class Model:
         tensor of per-row positions (the serving engine's continuous
         batching — see models.attention.decode_attention).
 
-        Returns (logits (B,1,V), state). The KV caches of `state` are
-        updated in place (the reference donates them to the same end)."""
+        Returns (logits (B,1,V), state). The leaves of `state` (KV caches,
+        or the ssm state, which ignores `pos`) are updated in place (the
+        reference donates them to the same end)."""
         cfg = self.cfg
-        _require_dense(cfg)
+        _require_ported(cfg)
         dt = torch_dtype(cfg.compute_dtype)
         x = embed(params["embedding"], token, dt)
         for i in range(cfg.n_layers):
             lp = _layer(params["stack"]["layers"], i)
+            if cfg.family == "ssm":
+                y, st = mamba_mod.mamba_step(
+                    lp["mamba"], rmsnorm(lp["ln"], x, cfg.norm_eps),
+                    {"h": state["h"][i], "conv": state["conv"][i]}, cfg, dt)
+                x = x + y
+                state["h"][i] = st["h"]
+                state["conv"][i] = st["conv"]
+                continue
             o, _, _ = attn_mod.decode_attention(
                 lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
                 cache_k=state["k"][i], cache_v=state["v"][i], pos=pos,

@@ -1,4 +1,4 @@
-"""Layer stack of the dense family.
+"""Layer stacks of the dense and ssm (Mamba1) families.
 
 Layer parameters are stacked with a leading L axis under `layers`, as in
 the JAX package, so leaf paths and checkpoints match. Where the reference
@@ -15,6 +15,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_mod
+from . import mamba as mamba_mod
 from .config import ModelConfig
 from .layers import mlp, mlp_init, rmsnorm, rmsnorm_init
 
@@ -23,8 +24,10 @@ Params = Any
 
 @dataclasses.dataclass(frozen=True)
 class ExecConfig:
-    """Execution knobs of the dense path."""
-    attn_impl: str = "chunked"        # naive | chunked | pallas (F1)
+    """Execution knobs. `attn_impl="pallas"` runs the port's kernels:
+    prefill attention through F1 and, in an ssm model, the prefill scan
+    through S1 (the reference's ssm path ignores the knob; ROADMAP C5)."""
+    attn_impl: str = "chunked"        # naive | chunked | pallas (F1, S1)
     remat_policy: str = "full"        # none | full
     xent_chunks: int = 4
 
@@ -46,17 +49,33 @@ def dense_block(p, x, cfg: ModelConfig, ec: ExecConfig, positions, dt):
     return h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps), dt)
 
 
-def _require_dense(cfg: ModelConfig):
-    if cfg.family != "dense":
+def mamba_block_init(gen, cfg: ModelConfig, dtype, lead=()):
+    return {
+        "ln": rmsnorm_init(cfg.d_model, dtype, gen.device, lead),
+        "mamba": mamba_mod.mamba_init(gen, cfg, dtype, lead),
+    }
+
+
+def mamba_block(p, x, cfg: ModelConfig, dt):
+    return x + mamba_mod.mamba_forward(
+        p["mamba"], rmsnorm(p["ln"], x, cfg.norm_eps), cfg, dt)
+
+
+PORTED_FAMILIES = ("dense", "ssm")
+
+
+def _require_ported(cfg: ModelConfig):
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: only 'dense' is "
-            "(ROADMAP queue A, slice 4)")
+            f"family {cfg.family!r} is not ported yet: only "
+            f"{PORTED_FAMILIES} are (ROADMAP queue A, item 6)")
 
 
 def stack_init(gen, cfg: ModelConfig, dtype) -> Params:
     """Stacked layer params (leading L axis) of the decoder stack."""
-    _require_dense(cfg)
-    return {"layers": dense_block_init(gen, cfg, dtype, lead=(cfg.n_layers,))}
+    _require_ported(cfg)
+    init = mamba_block_init if cfg.family == "ssm" else dense_block_init
+    return {"layers": init(gen, cfg, dtype, lead=(cfg.n_layers,))}
 
 
 def _layer(layers, i: int):
@@ -68,11 +87,13 @@ def _layer(layers, i: int):
 def stack_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   ec: ExecConfig, positions, dt):
     """x: (B,S,D) -> ((B,S,D), aux_loss)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     if ec.remat_policy not in ("none", "full"):
         raise ValueError(ec.remat_policy)
 
     def body(h, lp):
+        if cfg.family == "ssm":
+            return mamba_block(lp, h, cfg, dt)
         return dense_block(lp, h, cfg, ec, positions, dt)
 
     for i in range(cfg.n_layers):

@@ -35,6 +35,9 @@ SLICE_MODULES = [
     "repro_torch.serve", "repro_torch.serve.engine",
     "repro_torch.serve.replicate", "repro_torch.serve.cluster",
     "repro_torch.launch.serve",
+    "repro_torch.kernels.mamba_scan", "repro_torch.kernels.mamba_scan.ref",
+    "repro_torch.kernels.mamba_scan.ops",
+    "repro_torch.kernels.mamba_scan._build", "repro_torch.models.mamba",
 ]
 
 _CHILD = r"""
@@ -62,6 +65,10 @@ from repro_torch.launch.serve import main as serve_main
 assert serve_main(["--device", "cpu", "--reduced", "--attn-impl", "pallas",
                    "--requests", "2", "--prompt-len", "5", "--max-new",
                    "2", "--max-len", "16"]) == 0
+assert serve_main(["--device", "cpu", "--reduced", "--attn-impl", "pallas",
+                   "--arch", "falcon-mamba-7b", "--requests", "2",
+                   "--prompt-len", "5", "--max-new", "2",
+                   "--max-len", "16"]) == 0
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
                 or m == "repro" or m.startswith("repro."))
