@@ -9,17 +9,24 @@ Phases (any failure exits non-zero):
      `src/repro_torch/kernels/checksum/csrc`, the flash-attention kernel
      F1 from `src/repro_torch/kernels/flash_attention/csrc` and the
      selective-scan kernel S1 from `src/repro_torch/kernels/mamba_scan/csrc`;
+     then read F1's SASS (`cuobjdump -sass`): its bf16 kernel must run on
+     the tensor cores (HGMMA, or HMMA);
   2. hold each checksum kernel bit for bit against its plain PyTorch
      version at the main path's shapes (the paper-demo embedding table
      (32768, 768) fp32, a bf16 leaf, an odd-length leaf, a bool leaf, a
      5 %-dirty tile set), and time kernel, plain version and, for K3,
-     `torch.index_select`;
+     `torch.index_select`: event time, host issue time and the profiler's
+     device time (a kernel faster than its wrapper's host cost is clocked
+     by the host in event time, not by the card);
   3. [flash] hold F1 against its plain version at the prefill shapes of
      the serving paths (qwen2-7b at S 512, 384 and the odd 77; paper-demo
      at S 4 and 6) and at two extra cases (a query suffix Sq < Sk, and
-     paper-demo at S 512) in bf16 and fp32, causal and not, to 2e-2
-     (bf16) and 2e-5 (fp32); check that a row's bits do not depend on the
-     batch; time F1, its plain version and `scaled_dot_product_attention`;
+     paper-demo at S 512) in bf16 (the tensor-core kernel) and fp32 (the
+     FMA kernel), causal and not, to 2e-2 (bf16) and 2e-5 (fp32); check
+     that a row's bits do not depend on the batch and that the model
+     layout, read by strides, gives the flattened layout's bits; time F1,
+     its plain version and `scaled_dot_product_attention` (event, host
+     issue and device time);
   3b. [scan] hold S1 (y and h_final) against its plain version to 1e-4
      at the prefill shapes of the falcon-mamba-7b serving path (B 4,
      S 512, 384 and 77, d_inner 8192, ds 16), at odd shapes (S 1, S 3,
@@ -176,6 +183,34 @@ def timed(fn, iters: int = 20, warmup: int = 3) -> tuple[float, float]:
     return start.elapsed_time(end) / iters, host_ms
 
 
+# (label, row, key, fn): device times to take once every event and host
+# time is taken, so that no profiler session precedes a host-clock reading
+DEVICE_JOBS: list = []
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> tuple[float, list]:
+    """Mean device milliseconds per call from a `torch.profiler` trace of
+    `iters` back-to-back calls: the summed self time of every kernel and
+    copy the calls ran on the card, without the gaps in which the card
+    waited for the host. Returns it with the names of those kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events)
+    if total <= 0:
+        fail("the profiler saw no device time")
+    return total / 1e3 / iters, sorted(e.key for e in events)
+
+
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     from repro_torch.kernels.checksum import ops
@@ -301,13 +336,19 @@ def phase_kernels(torch, ops):
         plain_ms = timed(plain, iters=5, warmup=1)[0]
         lib_ms = timed(lib)[0] if lib is not None else None
         bms, by = bound_ms(nbytes, n_ops)
-        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+        rows[name] = {"max_abs_err": err, "ms": ms, "host_ms": host_ms,
+                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                      "library_ms": lib_ms}
+        DEVICE_JOBS.append((name, rows[name], "device_ms", kern))
+        if lib is not None:
+            DEVICE_JOBS.append((f"{name}: index_select", rows[name],
+                                "library_device_ms", lib))
         print(f"[kernels] {name} at {tuple(table.shape)} float32"
               + (f", {k} of {nt} tiles" if name == "gather_tiles" else "")
-              + f": {ms:.4f} ms (host issue {host_ms:.4f} ms/call, plain "
-              f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by}"
-              + (f", index_select {lib_ms:.4f} ms" if lib_ms else "") + ")")
+              + f": {ms:.4f} ms event, host issue {host_ms:.4f} ms/call; "
+              f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by}"
+              + (f"; index_select {lib_ms:.4f} ms event" if lib is not None
+                 else ""))
     return rows
 
 
@@ -327,6 +368,19 @@ def flash_bound_ms(flops: int, nbytes: int, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FLOPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_calls(torch, fa, q, k, v, H):
+    """Calls bound to these inputs: F1 on the model layout, F1 alone on
+    the flattened layout it also takes, (B*H, S, hd), and SDPA."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    qf, kf, vf = (t.reshape(-1, *t.shape[2:]).contiguous()
+                  for t in (qt, kt, vt))
+    return (lambda: fa.flash_attention_kernel(q, k, v, causal=True),
+            lambda: fa.flash_attention_bhsd_kernel(qf, kf, vf, causal=True,
+                                                   n_q_heads=H),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
 
 
 def phase_flash(torch) -> tuple[dict, set]:
@@ -369,48 +423,86 @@ def phase_flash(torch) -> tuple[dict, set]:
             fail(f"F1 lane {b} differs from the same row launched alone")
     print("[flash] lane independence: each lane of the B=4 qwen2-7b bf16 "
           "launch is bitwise equal to that row launched alone")
+    shape = FLASH_SHAPES[FLASH_MAIN]
+    for dname in ("bfloat16", "float32"):
+        q, k, v = inputs(shape, getattr(torch, dname))
+        for causal in (True, False):
+            model = fa.flash_attention_kernel(q, k, v, causal=causal)
+            flat = fa.flash_attention_bhsd_kernel(
+                *(t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3])
+                  for t in (q, k, v)), causal=causal, n_q_heads=shape[3])
+            if not torch.equal(model, flat.view(
+                    shape[0], shape[3], shape[1], -1).transpose(1, 2)):
+                fail(f"F1's model-layout route differs from its flattened "
+                     f"route ({dname}, causal={causal})")
+    print("[flash] the model layout read by strides gives the flattened "
+          "layout's bits (qwen2-7b S 512, bf16 and fp32, causal and not)")
 
     rows = {}
     for name in (FLASH_MAIN, "paper-demo prefill S 6",
                  "extra: paper-demo S 512"):
         shape = FLASH_SHAPES[name]
         q, k, v = inputs(shape, torch.bfloat16)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        # F1 alone, on the flattened layout it takes: (B*H, S, hd)
-        qf, kf, vf = (t.reshape(-1, *t.shape[2:]).contiguous()
-                      for t in (qt, kt, vt))
-        bhsd = lambda: fa.flash_attention_bhsd_kernel(
-            qf, kf, vf, causal=True, n_q_heads=shape[3])
-        kern = lambda: fa.flash_attention_kernel(q, k, v, causal=True)
-        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        ms, host_ms = timed(bhsd)
-        op_ms = timed(kern)[0]
+        kern, bhsd, sdpa = flash_calls(torch, fa, q, k, v, shape[3])
+        ms, host_ms = timed(kern)
+        flat_ms, flat_host_ms = timed(bhsd)
         plain_ms = timed(lambda: flash_attention_ref(q, k, v, causal=True),
                          iters=5, warmup=1)[0]
         # a yardstick only, never called by the port; Sq == Sk here, where
         # its top-left causal alignment agrees with the reference's
-        torch.use_deterministic_algorithms(False)
-        try:
-            lib_ms = timed(sdpa)[0]
-            sdpa_diff = float((sdpa().transpose(1, 2).float()
-                               - kern().float()).abs().max())
-        finally:
-            torch.use_deterministic_algorithms(True)
+        lib_ms = nondeterministic(torch, lambda: timed(sdpa)[0])
+        sdpa_diff = float((nondeterministic(torch, sdpa).transpose(1, 2)
+                           .float() - kern().float()).abs().max())
         flops, nbytes = attention_work(*shape, True, 2)
         bms, by = flash_bound_ms(flops, nbytes, "bfloat16")
-        print(f"[flash] {name} {shape} bf16 causal: F1 {ms:.4f} ms (host "
-              f"issue {host_ms:.4f} ms/call, {flops / ms / 1e9:.1f} "
-              f"TFLOP/s); {op_ms:.4f} ms with the model layout's "
-              f"transposes; plain {plain_ms:.4f} ms; sdpa {lib_ms:.4f} ms "
-              f"(max diff to F1 {sdpa_diff:.3g}); bound {bms:.4f} ms by "
-              f"{by}")
+        print(f"[flash] {name} {shape} bf16 causal, model layout: F1 "
+              f"{ms:.4f} ms event, host issue {host_ms:.4f} ms/call; "
+              f"flattened layout {flat_ms:.4f} ms event, host issue "
+              f"{flat_host_ms:.4f} ms/call; plain {plain_ms:.4f} ms; sdpa "
+              f"{lib_ms:.4f} ms event (max diff to F1 {sdpa_diff:.3g}); "
+              f"bound {bms:.4f} ms by {by}")
         rows[name] = {"max_abs_err": errs[(name, "bfloat16", True)],
-                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                      "bound_by": by, "library_ms": lib_ms}
+                      "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                      "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                      "flops": flops}
+        DEVICE_JOBS.append((f"flash_attention {name}", rows[name],
+                            "device_ms", kern))
+        DEVICE_JOBS.append((f"flash_attention {name}: sdpa", rows[name],
+                            "library_device_ms",
+                            lambda sdpa=sdpa: nondeterministic(torch, sdpa)))
     checked = {(FLASH_SHAPES[name], dname, causal)
                for name, dname, causal in errs}
     return rows[FLASH_MAIN], checked
+
+
+def nondeterministic(torch, fn):
+    """Call `fn` with deterministic algorithms off (SDPA has none)."""
+    torch.use_deterministic_algorithms(False)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(True)
+
+
+def phase_device_times(torch, ops) -> None:
+    """Every queued device time, by the profiler, after the host-clock
+    readings; then K3's host issue time once more, to show what a profiler
+    session leaves behind on the host path."""
+    for label, row, key, fn in DEVICE_JOBS:
+        row[key], names = device_ms(fn)
+        print(f"[device] {label}: {row[key]:.4f} ms device a call "
+              f"({'; '.join(n[:90] for n in names)})")
+        if key == "library_device_ms" and "flops" in row:
+            print(f"[device] {label[:-6]}: F1 "
+                  f"{row.pop('flops') / row['device_ms'] / 1e9:.1f} TFLOP/s; "
+                  f"F1 / sdpa device time "
+                  f"{row['device_ms'] / row['library_device_ms']:.2f}x")
+    k3 = next(fn for label, _, _, fn in DEVICE_JOBS
+              if label == "gather_tiles")
+    ms, host_ms = timed(k3)
+    print(f"[device] gather_tiles once more after the profiler sessions: "
+          f"{ms:.4f} ms event, host issue {host_ms:.4f} ms/call")
+    DEVICE_JOBS.clear()
 
 
 def scan_work(b, S, di, ds) -> tuple[int, int]:
@@ -468,14 +560,16 @@ def phase_scan(torch) -> tuple[dict, set]:
         n_ops, nbytes = scan_work(*shape)
         bms, by = bound_ms(nbytes, n_ops)
         print(f"[scan] {name} {shape} float32: max_abs_err {err:.3g} (tol "
-              f"{SCAN_TOL}, y and h_final); S1 {ms_:.4f} ms (host issue "
-              f"{host_ms:.4f} ms/call), bound {bms:.4f} ms by {by}, plain "
+              f"{SCAN_TOL}, y and h_final); S1 {ms_:.4f} ms event, "
+              f"host issue {host_ms:.4f} ms/call; "
+              f"bound {bms:.4f} ms by {by}, plain "
               f"{plain_ms:.4f} ms, chunked torch scan "
               + (f"{chunked_ms:.4f} ms" if chunked_ms is not None
                  else f"n/a (S % {c} != 0, ROADMAP C4)"))
         if not ok or not (torch.isfinite(y).all() and torch.isfinite(h).all()):
             fail(f"S1 disagrees with its plain version at {name}")
-        rows[name] = {"max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
+        rows[name] = {"max_abs_err": err, "ms": ms_, "host_ms": host_ms,
+                      "plain_ms": plain_ms,
                       "bound_ms": bms, "bound_by": by, "library_ms": None,
                       "chunked_torch_ms": chunked_ms}
 
@@ -489,6 +583,9 @@ def phase_scan(torch) -> tuple[dict, set]:
             *(t[b:b + 1] for t in args[:4]), args[4])
         if not (torch.equal(y[b:b + 1], yb) and torch.equal(h[b:b + 1], hb)):
             fail(f"S1 lane {b} differs from the same row launched alone")
+    DEVICE_JOBS.append((f"selective_scan {SCAN_MAIN}", rows[SCAN_MAIN],
+                        "device_ms",
+                        lambda: ms.selective_scan_kernel(*args)))
     print("[scan] lane independence: each lane of the B=4 falcon-mamba-7b "
           "S 512 launch is bitwise equal to that row launched alone, and two "
           "launches agree bit for bit")
@@ -873,6 +970,26 @@ def phase_sparse_dirt(torch, ops) -> dict:
     return launches
 
 
+def check_tensor_cores(so: str) -> None:
+    """F1's bf16 kernel must run on the tensor cores: count its warpgroup
+    (HGMMA) and warp (HMMA) matrix instructions in the built library's
+    SASS, and fail if there are none."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for line in sass.splitlines():
+        for op in ("HGMMA", "HMMA"):
+            at = line.find(op + ".")
+            if at >= 0:
+                shape = line[at:].split()[0]
+                counts[shape] = counts.get(shape, 0) + 1
+    print(f"[build] flash_attention SASS: tensor-core instructions {counts}")
+    if not counts:
+        fail("F1's library holds no HGMMA or HMMA instruction")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail("src/repro_torch not found beside chip_smoke.py")
@@ -907,11 +1024,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
 
+    check_tensor_cores(fa_build.KERNELS.info["path"])
+
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     rows = phase_kernels(torch, ops)
     rows["flash_attention"], flash_checked = phase_flash(torch)
     rows["selective_scan"], scan_checked = phase_scan(torch)
+    phase_device_times(torch, ops)
 
     by_path = phase_train(torch, ops)
     by_path["sparse-dirt"] = phase_sparse_dirt(torch, ops)

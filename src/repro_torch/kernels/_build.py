@@ -80,6 +80,8 @@ class KernelLib:
 
     def lib(self) -> ctypes.CDLL:
         """The loaded kernel library, built on first call."""
+        if self._lib is not None:        # the launch path: no lock
+            return self._lib
         with self._lock:
             if self._lib is None:
                 so = ctypes.CDLL(_compile(self.source, self.stem, self.info))

@@ -33,10 +33,16 @@
 // K3 gather_tiles    <- repro/kernels/checksum/kernel.py::gather_tiles_kernel
 //    (_gather_tiles_kernel). Copies tile idx[i] of the byte stream to row i
 //    of a compact (k, 1024) word buffer; the trailing partial tile is zero
-//    padded. Bound: memory, k * 4 KB read and k * 4 KB written.
-//    Design: scalar prefetch has no counterpart, so block i reads its own
-//    idx[i] and its 256 threads copy the tile with one 16-byte load and one
-//    16-byte store each.
+//    padded. Bound: memory, k * 4 KB read and k * 4 KB written; at the
+//    sparse-dirt path's 1,228 tiles that is 10 MB, 3 us at the card's rate,
+//    so the copy must have enough bytes in flight from the first cycle.
+//    Design: scalar prefetch has no counterpart, so a block reads its own
+//    indices. A block of 256 threads takes 8 tiles at a time: each thread
+//    issues its 16-byte load in all 8 (8 independent loads in flight per
+//    thread, 32 KB per block) before it stores any, and blocks stride over
+//    the index list. The grid is ceil(k / 8) blocks, capped at 8 per SM (a
+//    wave or two: 53 registers a thread leave room for 4 resident blocks),
+//    so a few hundred tiles fill the card at once.
 //
 // Each entry point launches on the stream it is given, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() so that a launch the
@@ -44,6 +50,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -142,14 +150,45 @@ __global__ void checksum_words_kernel(const uint8_t* __restrict__ data,
   }
 }
 
+constexpr int kGatherTiles = 8;     // tiles a block copies per pass
+
 __global__ void gather_tiles_kernel(const uint8_t* __restrict__ data,
                                     int64_t nbytes,
                                     const int32_t* __restrict__ idx,
-                                    uint4* __restrict__ out) {
-  const int64_t row = blockIdx.x;
-  const int64_t src = static_cast<int64_t>(idx[row]) * kTileBytes
-                      + 16 * static_cast<int64_t>(threadIdx.x);
-  out[row * kVecPerTile + threadIdx.x] = load_vec(data, src, nbytes);
+                                    int64_t k, uint4* __restrict__ out) {
+  for (int64_t row0 = static_cast<int64_t>(blockIdx.x) * kGatherTiles;
+       row0 < k; row0 += static_cast<int64_t>(gridDim.x) * kGatherTiles) {
+    uint4 x[kGatherTiles];
+#pragma unroll
+    for (int i = 0; i < kGatherTiles; ++i) {
+      if (row0 + i < k) {
+        const int64_t src = static_cast<int64_t>(idx[row0 + i]) * kTileBytes
+                            + 16 * static_cast<int64_t>(threadIdx.x);
+        x[i] = load_vec(data, src, nbytes);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kGatherTiles; ++i) {
+      if (row0 + i < k) out[(row0 + i) * kVecPerTile + threadIdx.x] = x[i];
+    }
+  }
+}
+
+// The SM count of the current device, looked up once per device: K3's
+// launch is issued on the host's critical path.
+cudaError_t device_sms(int* out) {
+  static std::atomic<int> cached[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int n = cached[dev & 63].load(std::memory_order_relaxed);
+  if (n == 0) {
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    cached[dev & 63].store(n, std::memory_order_relaxed);
+  }
+  *out = n;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -185,14 +224,20 @@ int rt_checksum_words(const void* data, int64_t nbytes, int sm_count,
   return static_cast<int>(cudaGetLastError());
 }
 
-// idx: (k,) int32 tile indices, each < ceil(nbytes / 4096); out: (k, 1024)
-// uint32, 16-byte aligned.
+// idx: (k,) int32 tile indices, each < ceil(nbytes / 4096), k >= 1; out:
+// (k, 1024) uint32, 16-byte aligned.
 int rt_gather_tiles(const void* data, int64_t nbytes, const void* idx,
                     int64_t k, void* out, void* stream) {
-  gather_tiles_kernel<<<static_cast<unsigned>(k), kVecPerTile, 0,
+  int sms = 0;
+  const cudaError_t err = device_sms(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int64_t blocks = (k + kGatherTiles - 1) / kGatherTiles;
+  const int64_t cap = static_cast<int64_t>(sms) * 8;   // a wave or two
+  if (blocks > cap) blocks = cap;
+  gather_tiles_kernel<<<static_cast<unsigned>(blocks), kVecPerTile, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), nbytes,
-      static_cast<const int32_t*>(idx), static_cast<uint4*>(out));
+      static_cast<const int32_t*>(idx), k, static_cast<uint4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

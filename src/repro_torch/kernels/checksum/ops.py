@@ -120,7 +120,9 @@ def _aligned(b: torch.Tensor) -> torch.Tensor:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on t's device (the cheap
+    getter: no Stream object is built)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def tile_checksums_kernel(b: torch.Tensor) -> torch.Tensor:
@@ -148,22 +150,22 @@ def checksum_words_kernel(b: torch.Tensor) -> torch.Tensor:
 
 
 def gather_tiles_kernel(b: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """K3 on a CUDA uint8 stream and (k,) int32 CUDA tile indices, each
-    below the stream's tile count (`gather_tiles_device` checks them on
-    the host) -> (k, TILE_WORDS) int32 device buffer."""
-    b = _aligned(b)
-    if not (idx.device == b.device and idx.dtype == torch.int32
-            and idx.dim() == 1 and idx.is_contiguous()):
-        raise ValueError("gather_tiles_kernel takes (k,) int32 tile indices "
-                         "on the stream's device")
+    """K3 on a CUDA uint8 stream and (k,) int32 CUDA tile indices ->
+    (k, TILE_WORDS) int32 device buffer. The launch path does only what
+    the kernel needs (an output, the raw stream, the call):
+    `gather_tiles_device` has checked that `b` is what `_aligned` returns
+    and that `idx` is contiguous int32 on b's device, each index below the
+    stream's tile count."""
     k = idx.numel()
-    out = torch.empty((k, TILE_WORDS), dtype=torch.int32, device=b.device)
+    dev = b.get_device()
+    out = torch.empty((k, TILE_WORDS), dtype=torch.int32, device=dev)
     if k == 0:
         return out
-    code = KERNELS.lib().rt_gather_tiles(b.data_ptr(), b.numel(),
-                                         idx.data_ptr(), k, out.data_ptr(),
-                                         _stream(b))
-    KERNELS.check(code, "gather_tiles")
+    code = KERNELS.lib().rt_gather_tiles(
+        b.data_ptr(), b.numel(), idx.data_ptr(), k, out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev))
+    if code:
+        KERNELS.check(code, "gather_tiles")
     LAUNCHES["gather_tiles"] += 1
     return out
 
@@ -215,7 +217,7 @@ def gather_tiles_device(x: torch.Tensor, idx) -> torch.Tensor:
     route = _route(x)
     t_idx = torch.as_tensor(idx.astype(np.int32), device=x.device)
     if route == "cuda":
-        return gather_tiles_kernel(b, t_idx)
+        return gather_tiles_kernel(_aligned(b), t_idx)
     return gather_tiles_plain(b, t_idx)
 
 

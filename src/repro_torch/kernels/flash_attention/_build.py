@@ -13,9 +13,11 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
 
 
 def _declare(so: ctypes.CDLL) -> None:
-    p, i32 = ctypes.c_void_p, ctypes.c_int
-    so.rt_flash_attention.argtypes = [p, p, p, p, i32, i32, i32, i32, i32,
-                                      i32, i32, i32, ctypes.c_float, p]
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    # q, k, v, o; dtype, B, H, Hkv, Sq, Sk, hd; (batch, seq, head) element
+    # strides of q, k, v, o; causal, scale, stream
+    so.rt_flash_attention.argtypes = [p, p, p, p, *[i32] * 7, *[i64] * 12,
+                                      i32, ctypes.c_float, p]
     so.rt_flash_attention.restype = i32
 
 

@@ -2,9 +2,12 @@
 
 `flash_attention` takes the model layout q (B,Sq,H,hd), k/v (B,Sk,Hkv,hd):
 
-  - CUDA tensors -> the hand-written kernel F1 (`csrc/flash_attention.cu`)
-                    on the flattened layout (B*H, S, hd), whatever the
-                    lengths; a build or launch failure raises
+  - CUDA tensors -> the hand-written kernel F1 (`csrc/flash_attention.cu`),
+                    whatever the lengths; a build or launch failure raises.
+                    The dtype picks F1's kernel: bfloat16 runs on the tensor
+                    cores (wgmma, TMA), float32 on fp32 FMAs. F1 reads q, k,
+                    v and writes o through their (batch, seq, head) strides,
+                    so neither layout is copied.
   - CPU tensors  -> the plain PyTorch version (`ref.flash_attention_ref`)
 
 Tensors on any other device raise. Both routes go through an autograd
@@ -23,8 +26,9 @@ from .ref import flash_attention_ref
 #: kernel launches per wrapper; only the CUDA branch counts
 LAUNCHES = {"flash_attention": 0}
 
-#: head dims F1 is compiled for (see `dispatch_hd` in the source)
+#: head dims F1 is compiled for (see `rt_flash_attention` in the source)
 HEAD_DIMS = (16, 64, 128)
+#: dtype -> F1's kernel: 0 the fp32 FMA kernel, 1 the bf16 tensor-core one
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -33,57 +37,126 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def flash_attention_bhsd_kernel(q: torch.Tensor, k: torch.Tensor,
-                                v: torch.Tensor, *, causal: bool,
-                                n_q_heads: int) -> torch.Tensor:
-    """F1 on the flattened layout: q (B*H, Sq, hd), k/v (B*Hkv, Sk, hd),
-    float32 or bfloat16 CUDA tensors -> (B*H, Sq, hd) in q's dtype."""
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    BH, Sq, hd = q.shape
-    BHkv, Sk = k.shape[0], k.shape[1]
-    H = n_q_heads
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention_bhsd_kernel takes CUDA tensors "
-                         "on one device")
+# Strides of size-1 dimensions are never stepped and arbitrary in torch;
+# both helpers set them to hd, a multiple of 16 bytes like the rest.
+
+def model_strides(t: torch.Tensor) -> tuple:
+    """(batch, seq, head) element strides of a (B, S, H, hd) tensor."""
+    B, S, H, hd = t.shape
+    sb, ss, sh, _ = t.stride()
+    return (hd if B == 1 else sb, hd if S == 1 else ss, hd if H == 1 else sh)
+
+
+def flat_strides(t: torch.Tensor, heads: int) -> tuple:
+    """(batch, seq, head) element strides of a (B*heads, S, hd) tensor:
+    row b*heads + h of the first dimension is batch b, head h."""
+    BH, S, hd = t.shape
+    s0, s1, _ = t.stride()
+    return (hd if BH == heads else heads * s0, hd if S == 1 else s1,
+            hd if heads == 1 else s0)
+
+
+def in_place(tensors, args: tuple) -> bool:
+    """Whether F1 reads and writes `tensors` (q, k, v, o) where they lie,
+    given their `launch_args`: each head dimension contiguous, each base
+    and stride a multiple of 16 bytes (TMA's rule, and the float4 loads')."""
+    bits = 0
+    for t in tensors:
+        if t.stride(-1) != 1:
+            return False
+        bits |= t.data_ptr()
+    size = tensors[0].element_size()
+    for st in args[7:]:
+        bits |= st * size
+    return bits % 16 == 0
+
+
+def launch_args(q, k, v, o, *, n_q_heads: int | None = None) -> tuple:
+    """The integers F1's entry point takes after the four pointers:
+    (dtype code, B, H, Hkv, Sq, Sk, hd, then the (batch, seq, head)
+    element strides of q, k, v and o). Model layout (B,S,H,hd) tensors,
+    or, with `n_q_heads`, the flattened layout (B*H, S, hd)."""
+    if n_q_heads is None:
+        B, Sq, H, hd = q.shape
+        Sk, Hkv = k.shape[1], k.shape[2]
+        st = [model_strides(t) for t in (q, k, v, o)]
+    else:
+        BH, Sq, hd = q.shape
+        H, Sk = n_q_heads, k.shape[1]
+        B = BH // H
+        Hkv = k.shape[0] // B
+        st = [flat_strides(q, H), flat_strides(k, Hkv), flat_strides(v, Hkv),
+              flat_strides(o, H)]
+    return (_DTYPES[q.dtype], B, H, Hkv, Sq, Sk, hd, *st[0], *st[1], *st[2],
+            *st[3])
+
+
+def _check(q, k, v, B, H, Hkv, Sk, hd) -> None:
+    dev = q.get_device()
+    if not (q.is_cuda and k.get_device() == dev and v.get_device() == dev):
+        raise ValueError("F1 takes CUDA tensors on one device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"F1 takes float32 or bfloat16 q, k, v of one "
                          f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"F1 is built for head dims {HEAD_DIMS}, got {hd}")
-    B = BH // H if H > 0 and BH % H == 0 else 0
-    Hkv = BHkv // B if B and BHkv % B == 0 else 0
-    if not Hkv or H % Hkv or tuple(k.shape) != (BHkv, Sk, hd) \
-            or v.shape != k.shape:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)} v {tuple(v.shape)} for H={H}")
-    if Sk == 0 or BH > 65535:
-        raise ValueError(f"F1 needs Sk > 0 and B*H <= 65535 (Sk={Sk}, "
-                         f"B*H={BH})")
-    out = torch.empty_like(q)
-    if Sq == 0:
-        return out
-    for t in (q, k, v, out):
-        if t.data_ptr() % 16:
-            raise ValueError("F1 needs 16-byte aligned buffers")
+    if not (B and Hkv and H % Hkv == 0 and Sk):
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} for H={H}")
+    if q.dtype == torch.float32 and B * H > 65535:
+        raise ValueError(f"F1's float32 kernel needs B*H <= 65535, got "
+                         f"{B * H}")
+
+
+def _launch(q, k, v, out, causal: bool, n_q_heads=None) -> torch.Tensor:
+    """Launch F1 on tensors `launch_args` describes (copying the inputs
+    to fresh, aligned storage only if F1 cannot read them in place)."""
+    args = launch_args(q, k, v, out, n_q_heads=n_q_heads)
+    if not in_place((q, k, v, out), args):
+        q, k, v = (t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
+        args = launch_args(q, k, v, out, n_q_heads=n_q_heads)
     code = KERNELS.lib().rt_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], BH, H, Hkv, Sq, Sk, hd, int(causal),
-        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
-    KERNELS.check(code, "flash_attention")
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args,
+        int(causal), 1.0 / math.sqrt(args[6]),
+        torch._C._cuda_getCurrentRawStream(q.get_device()))
+    if code:
+        KERNELS.check(code, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
 
 
+def flash_attention_bhsd_kernel(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, causal: bool,
+                                n_q_heads: int) -> torch.Tensor:
+    """F1 on the flattened layout: q (B*H, Sq, hd), k/v (B*Hkv, Sk, hd),
+    float32 or bfloat16 CUDA tensors -> (B*H, Sq, hd) in q's dtype."""
+    BH, Sq, hd = q.shape
+    BHkv, Sk = k.shape[0], k.shape[1]
+    H = n_q_heads
+    B = BH // H if H > 0 and BH % H == 0 else 0
+    Hkv = BHkv // B if B and BHkv % B == 0 else 0
+    _check(q, k, v, B, H, Hkv, Sk, hd)
+    if tuple(k.shape) != (BHkv, Sk, hd) or v.shape != k.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} for H={H}")
+    out = torch.empty((BH, Sq, hd), dtype=q.dtype, device=q.get_device())
+    if Sq == 0:
+        return out
+    return _launch(q, k, v, out, causal, n_q_heads=H)
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool) -> torch.Tensor:
-    """F1 in the model layout (B,Sq,H,hd) x (B,Sk,Hkv,hd) -> (B,Sq,H,hd)."""
+    """F1 in the model layout (B,Sq,H,hd) x (B,Sk,Hkv,hd) -> (B,Sq,H,hd),
+    the output contiguous so that merging its heads is a view."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    qf = q.transpose(1, 2).reshape(B * H, Sq, hd)
-    kf = k.transpose(1, 2).reshape(B * Hkv, Sk, hd)
-    vf = v.transpose(1, 2).reshape(B * Hkv, Sk, hd)
-    of = flash_attention_bhsd_kernel(qf, kf, vf, causal=causal, n_q_heads=H)
-    return of.reshape(B, H, Sq, hd).transpose(1, 2)
+    _check(q, k, v, B, H, Hkv, Sk, hd)
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.get_device())
+    if Sq == 0:
+        return out
+    return _launch(q, k, v, out, causal)
 
 
 def _forward(q, k, v, causal: bool) -> torch.Tensor:

@@ -7,7 +7,9 @@ Three interchangeable inner implementations (same math):
                ops — bounded memory; the default and the training path.
   - "pallas":  the reference's name for its Pallas flash kernel; here the
                hand-written CUDA kernel F1 (`kernels.flash_attention`),
-               forward only.
+               forward only. F1 reads q, k, v in this module's
+               (B, S, H, hd) layout and returns o in it, so merging the
+               heads after it is a view.
 """
 from __future__ import annotations
 

@@ -193,3 +193,31 @@ def test_cuda_kernels_match_plain_versions(cuda, name):
     idx = torch.arange(0, nt, 2, dtype=torch.int32, device=cuda)
     assert torch.equal(ops.gather_tiles_kernel(b, idx),
                        ops.gather_tiles_plain(b, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["k 1", "k not a multiple of 8",
+                                  "partial last tile", "more than a wave"])
+def test_k3_gathers_like_its_plain_version(cuda, case):
+    """K3's edges: one tile, a last pass of fewer than 8 tiles, the
+    zero-padded trailing tile, and more tiles than one wave of blocks
+    takes (blocks stride over the index list)."""
+    rng = np.random.default_rng(5)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    nbytes, idx = {
+        "k 1": (10 * 4096, [7]),
+        "k not a multiple of 8": (40 * 4096,
+                                  sorted(rng.choice(40, 13, replace=False))),
+        "partial last tile": (5 * 4096 + 1001, [0, 3, 5]),
+        "more than a wave": ((sms * 64 + 9) * 4096 + 12,
+                             list(range(0, sms * 64 + 10))),
+    }[case]
+    x = torch.from_numpy(rng.integers(0, 256, nbytes, dtype=np.uint8))
+    x = x.to(cuda)
+    n = ops.LAUNCHES["gather_tiles"]
+    got = ops.gather_tiles_device(x, idx)
+    assert ops.LAUNCHES["gather_tiles"] == n + 1
+    b = ops.byte_stream(x)
+    want = ops.gather_tiles_plain(b, torch.tensor(idx, dtype=torch.int32,
+                                                   device=cuda))
+    assert got.shape == (len(idx), TILE_WORDS) and torch.equal(got, want)

@@ -6,7 +6,14 @@ Tolerances are the reference's own (`tests/test_kernels.py`): 2e-5 in
 float32 (sums run in another order), 2e-2 in bfloat16 (one rounding of
 the output). On the card, F1 is held to the plain version with the same
 tolerances (the `gpu` tests below, and `chip_smoke.py`).
+
+F1's bfloat16 kernel runs on the tensor cores and rounds P to bfloat16
+before P.V. `_emulate_tensor_core_f1` repeats its tiling and rounding on
+the CPU, so the design's numerics are held to the bfloat16 tolerance here,
+where no card is.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,6 +79,167 @@ def test_plain_matches_oracle_at_odd_lengths(B, Sq, Sk, H, Hkv, hd, causal):
     np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=2e-5)
 
 
+# -------------------- the tensor-core design's numerics, emulated on the CPU
+
+_TC_ROWS, _TC_KEYS = 128, 128      # F1's bf16 query tile and key tile
+
+
+def _tc_key_end(q0, rows, Sq, Sk, causal):
+    """Keys a query tile reads (flash_fwd_tc's k_end): up to its last row's
+    position when causal, all Sk keys when a row precedes every key."""
+    if causal and q0 + Sk - Sq >= 0:
+        return min(Sk, q0 + rows + Sk - Sq)
+    return Sk
+
+
+def _emulate_tensor_core_f1(q, k, v, causal):
+    """flash_fwd_tc's arithmetic in float32 torch: bf16 operands, products
+    summed in fp32, exp2 of scores scaled by log2(e)/sqrt(hd), the running
+    max and sum in fp32, P rounded to bf16 before P.V (l sums the fp32 p),
+    128-row query tiles over 128-key tiles, the -1e30 mask, l floored at
+    1e-30, the output rounded to bf16. (The kernel's ex2.approx, its FFMA
+    of scale and max, and its multiply by 1/l differ from this by fp32
+    roundings only.) q (B,Sq,H,hd), k/v (B,Sk,Hkv,hd)."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qf = q.float().transpose(1, 2)                       # (B,H,Sq,hd)
+    kf = k.float().repeat_interleave(H // Hkv, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(H // Hkv, 2).transpose(1, 2)
+    scale = torch.tensor(1.0 / math.sqrt(hd) * 1.4426950408889634,
+                         dtype=torch.float32)
+    out = torch.empty_like(qf)
+    for q0 in range(0, Sq, _TC_ROWS):
+        rows = min(_TC_ROWS, Sq - q0)
+        qpos = torch.arange(q0, q0 + rows)[:, None] + (Sk - Sq)
+        m = torch.full((B, H, rows), -1e30)
+        l = torch.zeros((B, H, rows))
+        acc = torch.zeros((B, H, rows, hd))
+        for k0 in range(0, _tc_key_end(q0, rows, Sq, Sk, causal), _TC_KEYS):
+            ks = slice(k0, min(Sk, k0 + _TC_KEYS))
+            s = (qf[:, :, q0:q0 + rows] @ kf[:, :, ks].transpose(-1, -2)) \
+                * scale
+            if causal:
+                kpos = torch.arange(ks.start, ks.stop)[None, :]
+                s = torch.where(kpos <= qpos, s, torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] \
+                + p.to(torch.bfloat16).float() @ vf[:, :, ks]
+            m = m_new
+        out[:, :, q0:q0 + rows] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd", [
+    (2, 128, 128, 4, 4, 64),
+    (1, 512, 512, 4, 2, 128),       # qwen2-7b's hd, GQA, S 512
+    (1, 256, 384, 4, 1, 128),       # a query suffix, Sq < Sk
+    (1, 512, 512, 2, 2, 64),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_numerics_match_pallas_kernel(B, Sq, Sk, H, Hkv, hd,
+                                                  causal):
+    """bf16 P (and bf16 operands with fp32 sums) stays inside the bf16
+    tolerance against the reference's kernel and the plain version."""
+    (jq, jk, jv), (q, k, v) = _inputs(Sq + hd, B, Sq, Sk, H, Hkv, hd,
+                                      "bfloat16")
+    got = _f32(_emulate_tensor_core_f1(q, k, v, causal))
+    want = ref_flash(jq, jk, jv, causal=causal, interpret=True)
+    np.testing.assert_allclose(got, _f32(want), atol=2e-2, rtol=2e-2)
+    plain = flash_attention_ref(q, k, v, causal=causal)
+    np.testing.assert_allclose(got, _f32(plain), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd", [
+    (1, 1, 1, 2, 2, 64),            # S 1
+    (4, 6, 6, 12, 12, 64),          # paper-demo's serving prompts
+    (1, 77, 77, 4, 2, 128),         # no tile divides S
+    (1, 200, 100, 4, 4, 64),        # Sq > Sk: rows before every key
+    (2, 33, 300, 4, 1, 16),         # Sq < Sk over three key tiles, hd 16
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_numerics_match_plain_at_odd_lengths(B, Sq, Sk, H, Hkv,
+                                                         hd, causal):
+    _, (q, k, v) = _inputs(Sq * Sk, B, Sq, Sk, H, Hkv, hd, "bfloat16")
+    got = _emulate_tensor_core_f1(q, k, v, causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(1, 1), (5, 3), (3, 5), (300, 200),
+                                   (130, 700)])
+def test_tensor_core_key_end_covers_every_unmasked_key(Sq, Sk):
+    """A causal query tile reads every key one of its rows attends to, and
+    all Sk keys when a row precedes every key; the keys it skips are
+    masked for all its rows."""
+    for q0 in range(0, Sq, _TC_ROWS):
+        rows = min(_TC_ROWS, Sq - q0)
+        end = _tc_key_end(q0, rows, Sq, Sk, True)
+        pos = [i + Sk - Sq for i in range(q0, q0 + rows)]
+        if min(pos) < 0:
+            assert end == Sk
+        else:
+            assert end == min(Sk, max(pos) + 1)
+
+
+# ------------------------------- launch arguments: layouts and strides
+
+def _offset(strides, b, s, h):
+    return b * strides[0] + s * strides[1] + h * strides[2]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd", [
+    (2, 8, 8, 4, 2, 64),            # Sq == Sk, GQA
+    (1, 3, 10, 4, 1, 16),           # Sq < Sk, MQA
+    (3, 10, 3, 2, 2, 128),          # Sq > Sk
+    (2, 1, 1, 4, 4, 64),            # S 1
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_launch_args_address_every_element(B, Sq, Sk, H, Hkv, hd, dtype):
+    """The (batch, seq, head) strides F1 is given address each element of
+    both layouts where the tensor holds it, and the two layouts of the
+    same storage give F1 the same arguments."""
+    dt = getattr(torch, dtype)
+    flat = [torch.zeros((B * n, S, hd), dtype=dt)
+            for n, S in ((H, Sq), (Hkv, Sk), (Hkv, Sk), (H, Sq))]
+    model = [t.view(B, -1, *t.shape[1:]).transpose(1, 2) for t in flat]
+    a_flat = ops.launch_args(*flat, n_q_heads=H)
+    a_model = ops.launch_args(*model)
+    assert a_flat == a_model
+    assert a_flat[:7] == (ops._DTYPES[dt], B, H, Hkv, Sq, Sk, hd)
+    for i, (t, n, S) in enumerate(zip(model, (H, Hkv, Hkv, H),
+                                      (Sq, Sk, Sk, Sq))):
+        st = a_model[7 + 3 * i:10 + 3 * i]
+        for b in range(B):
+            for s_ in range(S):
+                for h in range(n):
+                    assert _offset(st, b, s_, h) == t[b, s_, h].storage_offset()
+    # the model layout as the projections make it: (B, S, H, hd) contiguous
+    q = torch.zeros((B, Sq, H, hd), dtype=dt)
+    k = torch.zeros((B, Sk, Hkv, hd), dtype=dt)
+    args = ops.launch_args(q, k, k, q)
+    assert args[7:10] == tuple(
+        hd if n == 1 else x for x, n in zip((Sq * H * hd, H * hd, hd),
+                                            (B, Sq, H)))
+
+
+def test_launch_args_take_only_16_byte_strides():
+    """F1 reads a tensor in place only if its base and strides are whole
+    16-byte steps and its head dimension is contiguous; the wrapper copies
+    anything else first."""
+    q = torch.zeros((2, 8, 4, 64), dtype=torch.bfloat16)
+    assert ops.in_place((q, q, q, q), ops.launch_args(q, q, q, q))
+    wide = torch.zeros(2 * 8 * (4 * 64 + 4), dtype=torch.bfloat16)
+    odd = wide.as_strided((2, 8, 4, 64), (8 * (4 * 64 + 4), 4 * 64 + 4,
+                                          64, 1))
+    shifted = wide[1:1 + q.numel()].view(q.shape)
+    strided = torch.zeros((2, 8, 4, 128), dtype=torch.bfloat16)[..., ::2]
+    for bad in (odd, shifted, strided):
+        assert not ops.in_place((q, bad, q, q), ops.launch_args(q, bad, q, q))
+
+
 def test_backward_raises():
     """The reference defines no VJP for A4: the port's op must not let
     attention silently drop out of a gradient."""
@@ -116,6 +284,58 @@ def test_f1_matches_plain_version(cuda, B, Sq, Sk, H, Hkv, hd, causal,
     tol = _TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd", [
+    (1, 1, 1, 2, 2, 64), (4, 4, 4, 12, 12, 64), (4, 6, 6, 12, 12, 64),
+    (4, 77, 77, 28, 4, 128), (4, 512, 512, 28, 4, 128),
+    (2, 512, 512, 4, 4, 16), (2, 33, 300, 4, 1, 16), (1, 128, 640, 28, 4, 128),
+    (1, 200, 100, 4, 4, 64), (2, 300, 129, 4, 2, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f1_tensor_cores_match_plain_version(cuda, B, Sq, Sk, H, Hkv, hd,
+                                             causal):
+    _, (q, k, v) = _inputs(3, B, Sq, Sk, H, Hkv, hd, "bfloat16")
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert got.is_contiguous() and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,kernel", [("bfloat16", "flash_fwd_tc"),
+                                          ("float32", "flash_fwd_fma")])
+def test_f1_dispatches_by_dtype(cuda, dtype, kernel):
+    """bf16 always runs the tensor-core kernel, even at S 1; float32 the
+    FMA kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    for S in (1, 512):
+        _, (q, k, v) = _inputs(4, 1, S, S, 4, 2, 64, dtype)
+        q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ops.flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        assert any(kernel in n for n in names), names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_f1_model_layout_equals_flattened_layout(cuda, dtype):
+    """The model layout read by strides gives the bits of the flattened
+    layout, and its output is written in (B, Sq, H, hd) order."""
+    B, Sq, Sk, H, Hkv, hd = 4, 77, 200, 28, 4, 128
+    _, (q, k, v) = _inputs(5, B, Sq, Sk, H, Hkv, hd, dtype)
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    for causal in (True, False):
+        model = ops.flash_attention_kernel(q, k, v, causal=causal)
+        flat = ops.flash_attention_bhsd_kernel(
+            *(t.transpose(1, 2).reshape(-1, t.shape[1], hd)
+              for t in (q, k, v)), causal=causal, n_q_heads=H)
+        assert model.stride() == (Sq * H * hd, H * hd, hd, 1)
+        assert torch.equal(model, flat.view(B, H, Sq, hd).transpose(1, 2))
 
 
 @pytest.mark.gpu
