@@ -9,8 +9,11 @@ Phases (any failure exits non-zero):
      `src/repro_torch/kernels/checksum/csrc`, the flash-attention kernel
      F1 from `src/repro_torch/kernels/flash_attention/csrc` and the
      selective-scan kernel S1 from `src/repro_torch/kernels/mamba_scan/csrc`;
-     then read F1's SASS (`cuobjdump -sass`): its bf16 kernel must run on
-     the tensor cores (HGMMA, or HMMA);
+     then read the SASS (`cuobjdump -sass`): F1's bf16 kernel must run on
+     the tensor cores (HGMMA, or HMMA), and every S1 kernel must hold its
+     exps (MUFU.EX2) and the shuffles that sum y over a channel's lanes
+     (SHFL.BFLY); print S1's registers a thread, resident warps an SM
+     and SASS instructions a state and step;
   2. hold each checksum kernel bit for bit against its plain PyTorch
      version at the main path's shapes (the paper-demo embedding table
      (32768, 768) fp32, a bf16 leaf, an odd-length leaf, a bool leaf, a
@@ -34,7 +37,13 @@ Phases (any failure exits non-zero):
      shapes; check that a lane's bits do not depend on the batch and that
      two launches agree; time S1, its plain version and the port's
      chunked torch scan (a yardstick: no single PyTorch call computes a
-     selective scan);
+     selective scan), beside two bounds: the bytes at 3.35 TB/s (the
+     kernels line's `bound_ms`) and the exps at the SFU's rate
+     (`exp_bound_ms`: 16 MUFU.EX2 a clock per SM at the SM clock that
+     `nvidia-smi --query-gpu=clocks.max.sm` reads), and the issue floor
+     of S1's code (its SASS instructions a state and step, one warp
+     instruction a clock per scheduler); S1's device time is printed as a
+     ratio of each;
   4. the training path at full width: `repro_torch.launch.train --arch
      paper-demo` (batch 8, seq 256) twice with a fault and twice without —
      full saves + a process fault under reinit, and delta saves
@@ -76,11 +85,13 @@ repository around it, the script fails before printing any result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -93,6 +104,7 @@ WORK = os.path.join(HERE, "build", "chip_smoke")
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 INT32_OPS_PER_S = 67e12       # the guide's non-tensor 32-bit rate (fp32)
+EX2_PER_CLOCK_PER_SM = 16     # sm_90's SFU: MUFU.EX2 lanes a clock per SM
 FLOPS_PER_S = {"bfloat16": 989e12,   # dense bf16 tensor-core peak
                "float32": 67e12}     # fp32 outside the tensor cores
 STEPS = 6
@@ -497,6 +509,14 @@ def phase_device_times(torch, ops) -> None:
                   f"{row.pop('flops') / row['device_ms'] / 1e9:.1f} TFLOP/s; "
                   f"F1 / sdpa device time "
                   f"{row['device_ms'] / row['library_device_ms']:.2f}x")
+        if "exp_bound_ms" in row:
+            print(f"[device] {label}: device time {row['device_ms']:.4f} ms "
+                  f"= {row['device_ms'] / row['bound_ms']:.2f}x the bytes "
+                  f"bound ({row['bound_ms']:.4f} ms), "
+                  f"{row['device_ms'] / row['exp_bound_ms']:.2f}x the exp "
+                  f"bound ({row['exp_bound_ms']:.4f} ms), "
+                  f"{row['device_ms'] / row['issue_floor_ms']:.2f}x the "
+                  f"issue floor of its code ({row['issue_floor_ms']:.4f} ms)")
     k3 = next(fn for label, _, _, fn in DEVICE_JOBS
               if label == "gather_tiles")
     ms, host_ms = timed(k3)
@@ -505,14 +525,39 @@ def phase_device_times(torch, ops) -> None:
     DEVICE_JOBS.clear()
 
 
-def scan_work(b, S, di, ds) -> tuple[int, int]:
-    """(operations, bytes) of one selective scan on these inputs: per
-    state and step an exp and 6 FLOPs (dt*A, h*dA + dt*x*B, y += h*C),
+def scan_work(b, S, di, ds) -> tuple[int, int, int]:
+    """(operations, bytes, exps) of one selective scan on these inputs:
+    per state and step an exp and 6 FLOPs (dt*A, h*dA + dt*x*B, y += h*C),
     per channel and step one more (dt*x); x, dt, B, C, A read once, y and
-    h_final written once, all float32."""
+    h_final written once, all float32. The exps, b * S * di * ds (one
+    MUFU.EX2 each, 268,435,456 at falcon-mamba-7b's prefill), run on the
+    SFU, not the FP32 pipes: `exp_bound_ms` times them."""
     ops = b * S * di * (7 * ds + 1)
     nbytes = 4 * (3 * b * S * di + 2 * b * S * ds + di * ds + b * di * ds)
-    return ops, nbytes
+    return ops, nbytes, b * S * di * ds
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as `nvidia-smi` reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.splitlines()[0].split()[0]) * 1e6
+
+
+def exp_bound_ms(torch, exps: int) -> float:
+    """The least time the SFUs of every SM take for `exps` MUFU.EX2."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return exps / (EX2_PER_CLOCK_PER_SM * sms * sm_clock_hz()) * 1e3
+
+
+def issue_floor_ms(torch, exps: int, per_exp: float) -> float:
+    """The least time for `exps` state-steps of S1 at `per_exp` SASS
+    instructions each (its step loop's count), issued at one warp
+    instruction a clock by each of an SM's 4 schedulers: a floor of this
+    code, not of the function."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return exps * per_exp / 32 / (4 * sms * sm_clock_hz()) * 1e3
 
 
 def scan_inputs(torch, g, shape, model_like: bool):
@@ -531,10 +576,11 @@ def scan_inputs(torch, g, shape, model_like: bool):
             n(b, S, ds), -n(di, ds).abs() - 0.1)
 
 
-def phase_scan(torch) -> tuple[dict, set]:
-    """Phase 3b: S1 against its plain version; lane independence; times.
-    Returns S1's row of the kernels line and the (shape, dtype) cases
-    checked."""
+def phase_scan(torch, per_exp: float) -> tuple[dict, set]:
+    """Phase 3b: S1 against its plain version; lane independence; times
+    beside the bytes and exp bounds and the issue floor of S1's code at
+    `per_exp` SASS instructions a state and step. Returns S1's row of the
+    kernels line and the (shape, dtype) cases checked."""
     from repro_torch.kernels.mamba_scan import ops as ms
     from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
     from repro_torch.models.mamba import _chunked_scan
@@ -557,12 +603,15 @@ def phase_scan(torch) -> tuple[dict, set]:
         chunked_ms = timed(lambda: _chunked_scan(*args[:4], args[4], c,
                                                  torch.float32),
                            iters=5, warmup=1)[0] if S % c == 0 else None
-        n_ops, nbytes = scan_work(*shape)
+        n_ops, nbytes, exps = scan_work(*shape)
         bms, by = bound_ms(nbytes, n_ops)
+        ems = exp_bound_ms(torch, exps)
+        ims = issue_floor_ms(torch, exps, per_exp)
         print(f"[scan] {name} {shape} float32: max_abs_err {err:.3g} (tol "
               f"{SCAN_TOL}, y and h_final); S1 {ms_:.4f} ms event, "
               f"host issue {host_ms:.4f} ms/call; "
-              f"bound {bms:.4f} ms by {by}, plain "
+              f"bound {bms:.4f} ms by {by}, exp bound {ems:.4f} ms "
+              f"({exps} MUFU.EX2), issue floor {ims:.4f} ms, plain "
               f"{plain_ms:.4f} ms, chunked torch scan "
               + (f"{chunked_ms:.4f} ms" if chunked_ms is not None
                  else f"n/a (S % {c} != 0, ROADMAP C4)"))
@@ -571,6 +620,7 @@ def phase_scan(torch) -> tuple[dict, set]:
         rows[name] = {"max_abs_err": err, "ms": ms_, "host_ms": host_ms,
                       "plain_ms": plain_ms,
                       "bound_ms": bms, "bound_by": by, "library_ms": None,
+                      "exp_bound_ms": ems, "issue_floor_ms": ims,
                       "chunked_torch_ms": chunked_ms}
 
     args = scan_inputs(torch, g, SCAN_SHAPES[SCAN_MAIN], True)
@@ -970,24 +1020,84 @@ def phase_sparse_dirt(torch, ops) -> dict:
     return launches
 
 
-def check_tensor_cores(so: str) -> None:
-    """F1's bf16 kernel must run on the tensor cores: count its warpgroup
-    (HGMMA) and warp (HMMA) matrix instructions in the built library's
-    SASS, and fail if there are none."""
+def sass_functions(so: str) -> dict:
+    """{kernel function: [its instructions, as "OPCODE.MODS operands"]}
+    of the built library's SASS (`cuobjdump -sass`), predicates dropped."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", so], capture_output=True,
                           text=True, check=True).stdout
-    counts = {}
+    fns: dict = {}
+    fn = None
     for line in sass.splitlines():
-        for op in ("HGMMA", "HMMA"):
-            at = line.find(op + ".")
-            if at >= 0:
-                shape = line[at:].split()[0]
-                counts[shape] = counts.get(shape, 0) + 1
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            fns[fn] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?(.*?)\s*;", line)
+        if m and fn is not None:
+            fns[fn].append(m[1])
+    return fns
+
+
+def sass_counts(instructions: list, ops: tuple) -> dict:
+    """{instruction: count} of the instructions that are one of `ops` (as
+    "HGMMA", "MUFU.EX2") with any modifiers."""
+    counts: dict = {}
+    for ins in instructions:
+        name = ins.split()[0]
+        if any(name == op or name.startswith(op + ".") for op in ops):
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def check_tensor_cores(so: str) -> None:
+    """F1's bf16 kernel must run on the tensor cores: count its warpgroup
+    (HGMMA) and warp (HMMA) matrix instructions in the built library's
+    SASS, and fail if there are none."""
+    counts: dict = {}
+    for instructions in sass_functions(so).values():
+        for name, n in sass_counts(instructions, ("HGMMA", "HMMA")).items():
+            counts[name] = counts.get(name, 0) + n
     print(f"[build] flash_attention SASS: tensor-core instructions {counts}")
     if not counts:
         fail("F1's library holds no HGMMA or HMMA instruction")
+
+
+def check_scan_build(kernels) -> float:
+    """Every S1 kernel (one per state size and copy width) must hold
+    MUFU.EX2 (its exps) and SHFL.BFLY (the xor tree that sums y over a
+    channel's lanes) in its SASS. Print each one's registers a thread,
+    resident warps an SM (as the runtime reports them) and SASS
+    instructions per exp in its step loop (from the first MUFU.EX2 to the
+    last: the unrolled steps of a whole and of a last chunk, one exp per
+    state and step). Return that count for the main path's kernel (ds 16,
+    16 B copies)."""
+    fns = {}
+    for fn, instructions in sass_functions(kernels.info["path"]).items():
+        m = re.search(r"selective_scan_fwdILi(\d+)ELb([01])E", fn)
+        if m:
+            fns[(int(m[1]), int(m[2]))] = instructions
+    if len(fns) != 6:
+        fail(f"S1's library holds {len(fns)} scan kernels, not 6")
+    lib = kernels.lib()
+    per_exp = {}
+    for (ds, vec), instructions in sorted(fns.items()):
+        by_op = sass_counts(instructions, ("MUFU.EX2", "SHFL.BFLY"))
+        if not by_op.get("MUFU.EX2") or not by_op.get("SHFL.BFLY"):
+            fail(f"S1 (ds {ds}) lacks MUFU.EX2 or SHFL.BFLY in its SASS")
+        exps = [i for i, ins in enumerate(instructions)
+                if ins.startswith("MUFU.EX2")]
+        per_exp[(ds, vec)] = (exps[-1] - exps[0] + 1) / len(exps)
+        regs, warps = ctypes.c_int(), ctypes.c_int()
+        kernels.check(lib.rt_selective_scan_occupancy(
+            ds, vec, ctypes.byref(regs), ctypes.byref(warps)),
+            "selective_scan occupancy")
+        print(f"[build] selective_scan ds {ds}, {16 if vec else 4} B copies: "
+              f"{regs.value} registers a thread, {warps.value} resident "
+              f"warps an SM; SASS {by_op}, {len(instructions)} instructions, "
+              f"{per_exp[(ds, vec)]:.2f} a state and step in the step loop")
+    return per_exp[(16, 1)]
 
 
 def main() -> int:
@@ -1025,12 +1135,13 @@ def main() -> int:
                 print(f"[build] {line.strip()}")
 
     check_tensor_cores(fa_build.KERNELS.info["path"])
+    per_exp = check_scan_build(ms_build.KERNELS)
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     rows = phase_kernels(torch, ops)
     rows["flash_attention"], flash_checked = phase_flash(torch)
-    rows["selective_scan"], scan_checked = phase_scan(torch)
+    rows["selective_scan"], scan_checked = phase_scan(torch, per_exp)
     phase_device_times(torch, ops)
 
     by_path = phase_train(torch, ops)

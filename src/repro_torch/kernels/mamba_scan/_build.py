@@ -17,6 +17,8 @@ def _declare(so: ctypes.CDLL) -> None:
     so.rt_selective_scan.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, i32,
                                      p]
     so.rt_selective_scan.restype = i32
+    so.rt_selective_scan_occupancy.argtypes = [i32, i32, p, p]
+    so.rt_selective_scan_occupancy.restype = i32
 
 
 KERNELS = KernelLib(SOURCE, "selective_scan", _declare)

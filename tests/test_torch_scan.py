@@ -109,6 +109,60 @@ def test_bad_shapes_raise():
         ops.mamba_scan(x, dt[:, :4], B, C, A)
 
 
+# ------------------------------- S1's order of operations, on the CPU
+
+def _fma(a, b, c):
+    """float32 a * b + c rounded once, as the card's FFMA (through float64,
+    whose 53 bits hold the product exactly; the sum rounds twice, which
+    differs from one rounding only at ties)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _emulate_s1(x, dt, B, C, A):
+    """S1's arithmetic in plain torch: per state dA = exp(dt * A) and
+    h = fma(h, dA, (dt * x) * B); y's sum over each lane's 4 states in
+    increasing s (a product, then fused multiply-adds), then over the
+    channel's ds / 4 lanes by the xor tree of offsets 1, 2, 4: lane pairs
+    (0, 1), (2, 3), ... first."""
+    bsz, S, di = x.shape
+    ds = B.shape[-1]
+    h = torch.zeros((bsz, di, ds))
+    ys = []
+    for t in range(S):
+        dtv = dt[:, t, :, None]
+        dA = torch.exp(dtv * A)
+        dx = (dt[:, t] * x[:, t])[..., None]
+        h = _fma(h, dA, dx * B[:, t, None, :])
+        hc = h.view(bsz, di, ds // 4, 4)
+        cc = C[:, t].view(bsz, 1, ds // 4, 4)
+        part = hc[..., 0] * cc[..., 0]
+        for j in range(1, 4):
+            part = _fma(hc[..., j], cc[..., j], part)
+        while part.shape[-1] > 1:
+            part = part[..., 0::2] + part[..., 1::2]
+        ys.append(part[..., 0])
+    return torch.stack(ys, dim=1), h
+
+
+@pytest.mark.parametrize("b,S,di,ds", [
+    (2, 19, 12, 8),             # two lanes a channel
+    (1, 40, 24, 16),            # four: the main path's ds
+    (2, 23, 8, 32),             # eight
+])
+def test_s1_order_of_operations_matches_pallas_kernel(b, S, di, ds):
+    """S1's fused multiply-adds and its per-lane, then xor-tree, sum for y
+    stay within S1's tolerance on the card of the reference's Pallas
+    kernel (interpret mode) and its oracle."""
+    arrs = _inputs(100 * ds + S, b, S, di, ds)
+    y, h = _emulate_s1(*map(torch.from_numpy, arrs))
+    js = [jnp.asarray(a) for a in arrs]
+    for want_y, want_h in (ref_kernel(*js, chunk=8, block_d=8,
+                                      interpret=True),
+                           ref_oracle(*js)):
+        _close(y, want_y)
+        _close(h, want_h)
+
+
 # ------------------------------------------------------ on the card only
 
 @pytest.fixture
@@ -121,7 +175,14 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,S,di,ds", [
     (4, 512, 8192, 16), (4, 77, 8192, 16), (1, 1, 16, 8), (2, 3, 5, 16),
-    (1, 130, 200, 16), (2, 64, 32, 8), (1, 128, 256, 32)])
+    (1, 130, 200, 16), (2, 64, 32, 8), (1, 128, 256, 32),
+    # around the 16-step chunk and its double buffer, and an odd 8
+    (2, 7, 64, 16), (2, 8, 64, 16), (2, 9, 64, 16), (2, 15, 64, 16),
+    (2, 16, 64, 16), (2, 17, 64, 16), (1, 513, 128, 16),
+    # one channel, part of a warp, a ragged 64-channel block (4 B copies)
+    (2, 40, 1, 16), (2, 40, 3, 16), (2, 40, 33, 16),
+    # two and eight lanes a channel
+    (3, 100, 200, 8), (3, 100, 200, 32), (3, 33, 33, 8), (3, 33, 33, 32)])
 def test_s1_matches_plain_version(cuda, b, S, di, ds):
     x, dt, B, C, A = (torch.from_numpy(a).to(cuda)
                       for a in _inputs(1, b, S, di, ds))
@@ -134,9 +195,10 @@ def test_s1_matches_plain_version(cuda, b, S, di, ds):
 
 
 @pytest.mark.gpu
-def test_s1_lanes_do_not_depend_on_the_batch(cuda):
+@pytest.mark.parametrize("ds", [8, 16, 32])
+def test_s1_lanes_do_not_depend_on_the_batch(cuda, ds):
     x, dt, B, C, A = (torch.from_numpy(a).to(cuda)
-                      for a in _inputs(2, 4, 77, 1000, 16))
+                      for a in _inputs(2, 4, 77, 1000, ds))
     y, h = ops.mamba_scan(x, dt, B, C, A)
     y2, h2 = ops.mamba_scan(x, dt, B, C, A)
     assert torch.equal(y, y2) and torch.equal(h, h2)
