@@ -16,8 +16,9 @@ Phases (any failure exits non-zero):
      and SASS instructions a state and step;
   2. hold each checksum kernel bit for bit against its plain PyTorch
      version at the main path's shapes (the paper-demo embedding table
-     (32768, 768) fp32, a bf16 leaf, an odd-length leaf, a bool leaf, a
-     5 %-dirty tile set), and time kernel, plain version and, for K3,
+     (32768, 768) fp32, a bf16 leaf, an odd-length leaf, a bool leaf, the
+     runtime worker's float64 x at dim 4096, a 5 %-dirty tile set), and
+     time kernel, plain version and, for K3,
      `torch.index_select`: event time, host issue time and the profiler's
      device time (a kernel faster than its wrapper's host cost is clocked
      by the host in event time, not by the card);
@@ -49,9 +50,28 @@ Phases (any failure exits non-zero):
      full saves + a process fault under reinit, and delta saves
      (--ckpt-delta-every 4) + a node fault under cr, which reloads from
      files — each faulted run's final state bit-identical to its twin's;
+  4b. [train] the trainer's elastic and gray paths at the same width,
+     through the API: the shrink strategy with no spare and a node fault
+     (full saves, K2), and a slow rank drained by mitigation — each
+     bit-identical to its fault-free twin;
   5. a sparse-dirt checkpoint: FileCheckpointer(delta_every=4) on the
      full paper-demo train state with a 5 % window of every leaf changed
      between saves, so the delta save gathers dirty tiles on the card;
+  5b. [runtime] the real-process runtime of `repro_torch.runtime` on the
+     card at the root's default deployment (2 nodes x 4 ranks + 1 spare
+     node, 20 steps, dim 4096: each worker holds w = 0.999·I, 128 MiB of
+     float64, and x on the card, and digests every step's frame with K1):
+     fault-free, reinit and cr under a process and a node failure, and
+     the `shrink-then-growback` and `replica-promote` catalog cells at
+     dim 4096, all through `run_real`. Each fault run must give the
+     oracle's resume steps and its fault-free twin's per-rank checksums
+     bit for bit, and K1 must have launched in every worker (the counts
+     come back in each worker's DONE message). Prints each run's
+     `mpi_recovery_s` and `total_s`, the reinit/cr ratios, a re-spawned
+     worker's start-up (import, CUDA context, w, kernel library, warm
+     step) and the
+     card's memory in use (`nvidia-smi --query-gpu=memory.used`) before
+     and at its peak during the runs;
   6. [serve] the serving path at the full published width and depth of
      qwen2-7b: `repro_torch.launch.serve` with `--attn-impl pallas` (F1
      must launch once per layer and prefill); then, through the API, the
@@ -71,7 +91,8 @@ Phases (any failure exits non-zero):
      `pallas` against `chunked`, with each prefill call's wall time;
   9. the kernel report. Launches are counted per path: the counts are
      set to 0 just before each path is driven and read just after it.
-     K2 must launch on the full-save runs, K1 on the delta-cadence runs,
+     K2 must launch on the full-save runs (the shrink and gray runs
+     included), K1 on the delta-cadence runs and in every runtime run,
      K3 (which training never reaches: AdamW dirties every tile) on the
      sparse-dirt saves, F1 on both dense serving paths and S1 on the
      falcon-mamba-7b one; every shape, dtype and mask F1 was given must
@@ -95,6 +116,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -301,6 +323,9 @@ def phase_kernels(torch, ops):
             769769, generator=g, device="cuda").to(torch.float16),
         "bool (4096003,)": torch.rand(4096003, generator=g,
                                       device="cuda") > 0.5,
+        # a runtime worker's frame: x, float64 (dim,), 8 tiles at dim 4096
+        f"runtime worker's x ({RT_DIM},) float64": torch.randn(
+            RT_DIM, generator=g, dtype=torch.float64, device="cuda"),
     }
     for name, x in leaves.items():
         b = ops.byte_stream(x)
@@ -963,6 +988,235 @@ def phase_train(torch, ops) -> dict:
     return launches
 
 
+def phase_train_elastic(torch, device: str = "cuda", batch: int = 8,
+                        seq: int = 256) -> dict:
+    """Phase 4b: the trainer's elastic and gray paths at full width,
+    through the API (the CLI has no scenario flag): a node loss with no
+    spare (shrink, full saves), and a slow rank drained by mitigation.
+    Each must end bit-identical to its fault-free twin. Returns
+    {run name: kernel launches over its fault and twin runs}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ScenarioInjector
+    from repro_torch.models.model import Model
+    from repro_torch.scenarios import Fault, Scenario, Topology
+    from repro_torch.scenarios.schema import gray_drain_cut
+    from repro_torch.train import (AdamWConfig, TokenPipeline, TrainConfig,
+                                   Trainer)
+    cfg = get_config("paper-demo")
+    slow = Fault("rank", 1, 2, how="slow", factor=6.0)
+    runs = {   # name: (faults, mitigate, [(world_after, rollback_step)])
+        "shrink-node-full": ((Fault("node", 2, 3),), False, [(4, 3)]),
+        "gray-slow-drain": ((slow,), True, [(7, gray_drain_cut(slow))]),
+    }
+    launches = {}
+    for name, (faults, mitigate, want) in runs.items():
+        sc = Scenario(name=name, steps=STEPS,
+                      topology=Topology(nodes=2, ranks_per_node=4, spares=0),
+                      faults=faults, mitigate=mitigate,
+                      strategies=("shrink",), expect_bit_identical=False)
+        out = {}
+        launches[name] = {k: 0 for k in launch_counts()}
+        for twin in (False, True):
+            tag = f"{name}-{'twin' if twin else 'fault'}"
+            d = os.path.join(WORK, tag)
+            tr = Trainer(
+                Model(cfg), TokenPipeline(cfg.vocab_size, batch, seq, seed=0,
+                                          device=device),
+                AdamWConfig(total_steps=STEPS,
+                            warmup_steps=max(STEPS // 10, 1)),
+                TrainConfig(total_steps=STEPS, ckpt_dir=d, strategy="shrink",
+                            n_nodes=2, ranks_per_node=4, spare_nodes=0,
+                            mitigate=mitigate, seed=0, device=device),
+                injector=None if twin else ScenarioInjector(sc))
+            t0 = time.monotonic()
+            reset_launches()
+            res = tr.run()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            for k, n in launch_counts().items():
+                launches[name][k] += n
+            wall = time.monotonic() - t0
+            got = [(r.world_after, r.rollback_step) for r in res["reports"]]
+            print(f"[train] {tag}: {wall:.1f} s, world {tr.n_ranks}, "
+                  f"reports (world_after, rollback_step) {got}, stragglers "
+                  f"by rank {sorted(res['stragglers_by_rank'])}, recovery "
+                  f"total_s {[round(r.total_s, 4) for r in res['reports']]}")
+            if res["final_step"] != STEPS:
+                fail(f"{tag}: final_step {res['final_step']}")
+            if got != ([] if twin else want):
+                fail(f"{tag}: reports {got}, expected {want}")
+            if not twin and mitigate and set(res["stragglers_by_rank"]) != {1}:
+                fail(f"{tag}: stragglers {res['stragglers_by_rank']}")
+            out[twin] = final_digests(d)
+            shutil.rmtree(d)
+        if out[False] != out[True]:
+            fail(f"{name}: final state differs from the fault-free twin")
+        print(f"[train] {name}: final state bit-identical to its twin "
+              f"({len(out[True]['digests'])} leaves); launches "
+              f"{launches[name]}")
+    return launches
+
+
+# the runtime's deployment: the reference root's defaults (2 nodes x 4
+# ranks + 1 spare node, 20 steps, dim 4096: w is 128 MiB of float64)
+RT_TOPOLOGY = (2, 4, 1)
+RT_STEPS = 20
+RT_DIM = 4096
+RT_FAIL_RANK = 1           # on node0; fenced at step steps // 2
+
+
+class MemoryUsed:
+    """Samples the card's memory in use (`nvidia-smi --query-gpu=
+    memory.used`, MiB) in a thread: the first sample and the largest."""
+
+    def __init__(self, period: float = 1.0):
+        self.base_used = self.peak_used = 0
+        self._stop = threading.Event()
+        self._period = period
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            used = int(subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True).stdout.split()[0])
+            if not self.base_used:
+                self.base_used = used          # before any worker started
+            self.peak_used = max(self.peak_used, used)
+            self._stop.wait(self._period)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def phase_runtime(device: str = "cuda", topology=RT_TOPOLOGY,
+                  steps: int = RT_STEPS, dim: int = RT_DIM) -> dict:
+    """Phase 5b: the port's real-process runtime (root, daemons and
+    worker processes, each worker's state on the card), through
+    `run_real`: fault-free, reinit and cr under a process and a node
+    failure at the root's default deployment, then one shrink and one
+    replica catalog cell at the same dim. Each fault run must give the
+    oracle's resume steps and its fault-free twin's per-rank checksums
+    bit for bit, and every worker must have launched K1. Returns
+    {run name: K1-K3 launches summed over the run's workers}."""
+    from repro_torch.scenarios import Fault, Scenario, Topology
+    from repro_torch.scenarios.catalog import BY_NAME, fault_free
+    from repro_torch.scenarios.engine import run_real
+
+    nodes, rpn, spares = topology
+    topo = Topology(nodes=nodes, ranks_per_node=rpn, spares=spares)
+    rank, step = RT_FAIL_RANK, steps // 2
+    deployed = {f"{strategy}-{target}": (Scenario(
+        name=f"{strategy}-{target}", topology=topo, steps=steps, dim=dim,
+        faults=(Fault("node" if target == "node" else "rank", rank, step),),
+        strategies=(strategy,)), strategy)
+        for strategy in ("reinit", "cr") for target in ("process", "node")}
+    cells = {name: (dataclasses.replace(BY_NAME[name], dim=dim), strategy)
+             for name, strategy in (("shrink-then-growback", "shrink"),
+                                    ("replica-promote", "replica"))}
+    ff_cache: dict = {}
+    launches, rec = {}, {}
+
+    def run(name, sc, strategy):
+        t0 = time.monotonic()
+        out = run_real(sc, strategy, os.path.join(WORK, "runtime", name),
+                       timeout=600, device=device)
+        wall = time.monotonic() - t0
+        workers = out.detail["report"].get("workers", {})
+        lc = {k: 0 for k in launch_counts()}
+        for w in workers.values():
+            for k, n in w["launches"].items():
+                lc[k] = lc.get(k, 0) + n
+        starts = {r: w["startup"] for r, w in workers.items()}
+        fresh = [w["startup"] for w in workers.values() if w["restarted"]]
+        ev = out.detail["events"]
+        print(f"[runtime] {name} ({strategy}): {wall:.1f} s wall, total_s "
+              f"{out.total_s:.3f}, resume steps {out.resume_steps}, events "
+              + json.dumps([{k: e[k] for k in (
+                  "kind", "detected_by", "mpi_recovery_s", "join_release_s",
+                  "rejoin_barrier_s", "promote_complete_s", "world_after")
+                  if k in e} for e in ev]))
+        k1 = {r: w["launches"]["tile_checksums"]
+              for r, w in sorted(workers.items())}
+        parts = ("import_s", "context_s", "state_s", "kernel_lib_s",
+                 "warm_s", "ready_s")
+        up = {r: [round(v[k], 3) for k in parts]
+              for r, v in sorted(starts.items())}
+        print(f"[runtime] {name}: K1 launches by rank {k1}; start-up s "
+              f"(import, context, w, kernel lib, warm step, ready) by rank "
+              f"{up}")
+        if len(workers) != len(out.checksums) or not workers:
+            fail(f"runtime {name}: {len(workers)} workers reported for "
+                 f"{len(out.checksums)} checksums")
+        idle = sorted(r for r, w in workers.items()
+                      if w["launches"]["tile_checksums"] <= 0)
+        if device == "cuda" and idle:
+            fail(f"runtime {name}: K1 never launched in ranks {idle}")
+        want = [e for e in out.expected_resume if e is not None]
+        if out.resume_steps != want or not out.resume_consistent:
+            fail(f"runtime {name}: resume {out.resume_steps}, oracle "
+                 f"{out.expected_resume}")
+        launches[f"runtime-{name}"] = lc
+        rec[name] = {"mpi_recovery_s": [e.get("mpi_recovery_s") for e in ev],
+                     "total_s": out.total_s, "fresh": fresh}
+        return out
+
+    def twin(sc):
+        key = (sc.topology, sc.steps, sc.dim)
+        if key not in ff_cache:
+            ff = fault_free(sc.topology, steps=sc.steps, dim=sc.dim)
+            out = run(f"fault-free-{sc.topology.nodes}x"
+                      f"{sc.topology.ranks_per_node}+"
+                      f"{sc.topology.spares}-{sc.steps}", ff, "reinit")
+            if out.n_recoveries:
+                fail("runtime: the fault-free run recovered")
+            ff_cache[key] = out.checksums
+        return ff_cache[key]
+
+    mem = MemoryUsed()
+    with mem if device == "cuda" else contextlib.nullcontext():
+        for name, (sc, strategy) in {**deployed, **cells}.items():
+            ff = twin(sc)
+            out = run(name, sc, strategy)
+            if out.n_recoveries < 1:
+                fail(f"runtime {name}: no recovery happened")
+            if out.checksums != ff:
+                fail(f"runtime {name}: per-rank checksums differ from the "
+                     "fault-free run's")
+            print(f"[runtime] {name}: {len(ff)} per-rank checksums "
+                  "bit-identical to the fault-free run")
+    shutil.rmtree(os.path.join(WORK, "runtime"), ignore_errors=True)
+    for kind in ("process", "node"):
+        r = rec[f"reinit-{kind}"]["mpi_recovery_s"][0]
+        c = rec[f"cr-{kind}"]["mpi_recovery_s"][0]
+        print(f"[runtime] {kind} failure: mpi_recovery_s reinit {r:.3f}, cr "
+              f"{c:.3f}, reinit/cr {r / c:.2f}, cr/reinit {c / r:.2f}x; "
+              f"total_s reinit "
+              f"{rec[f'reinit-{kind}']['total_s']:.3f}, cr "
+              f"{rec[f'cr-{kind}']['total_s']:.3f}")
+    fresh = rec["reinit-process"]["fresh"]
+    if fresh:
+        f = fresh[0]
+        print(f"[runtime] a re-spawned worker (reinit, process failure): "
+              f"import {f['import_s']:.3f} s, CUDA context "
+              f"{f['context_s']:.3f} s, w on the card {f['state_s']:.3f} s, "
+              f"kernel library {f['kernel_lib_s']:.3f} s, warm step "
+              f"{f['warm_s']:.3f} s, ready to register {f['ready_s']:.3f} s "
+              f"after its module started; allocator reserve "
+              f"{f.get('reserved_mib', 0):.0f} MiB")
+    if device == "cuda":
+        print(f"[runtime] device memory: the card's memory.used "
+              f"{mem.base_used} MiB before the runs, {mem.peak_used} MiB "
+              f"at its peak")
+    return launches
+
+
 def phase_sparse_dirt(torch, ops) -> dict:
     """Phase 4: delta saves of the full train state with 5 % dirt.
     Returns the kernel launches of the three saves."""
@@ -1145,7 +1399,12 @@ def main() -> int:
     phase_device_times(torch, ops)
 
     by_path = phase_train(torch, ops)
+    by_path.update(phase_train_elastic(torch))
     by_path["sparse-dirt"] = phase_sparse_dirt(torch, ops)
+    gc.collect()
+    torch.cuda.empty_cache()         # the workers' memory stands out
+    runtime = phase_runtime()
+    by_path.update(runtime)
     shutil.rmtree(WORK, ignore_errors=True)
     flash_seen: set = set()
     by_path["serve-qwen2-7b"] = phase_serve(
@@ -1170,8 +1429,9 @@ def main() -> int:
     print(f"[scan] every case S1 ran on the serving path was checked: "
           f"{sorted(scan_seen)}")
     # the path each kernel must launch on
-    required = {"checksum_words": ["reinit-process-full"],
-                "tile_checksums": ["cr-node-delta4"],
+    required = {"checksum_words": ["reinit-process-full", "shrink-node-full",
+                                   "gray-slow-drain"],
+                "tile_checksums": ["cr-node-delta4", *runtime],
                 "gather_tiles": ["sparse-dirt"],
                 "flash_attention": ["serve-qwen2-7b",
                                     "serve-cluster-paper-demo"],

@@ -78,6 +78,12 @@ class KernelLib:
         self._lib: ctypes.CDLL | None = None
         self.info: dict = {}
 
+    def build(self) -> str:
+        """Compile the library unless it is built, without loading it
+        (no CUDA runtime enters the calling process). Returns its path."""
+        with self._lock:
+            return _compile(self.source, self.stem, self.info)
+
     def lib(self) -> ctypes.CDLL:
         """The loaded kernel library, built on first call."""
         if self._lib is not None:        # the launch path: no lock

@@ -1,11 +1,16 @@
-"""In-process fault-tolerant trainer, PyTorch on one device.
+"""Training launchers, PyTorch on one device.
 
     python -m repro_torch.launch.train --arch paper-demo --steps 12 \\
         --fail-kind process --strategy reinit [--device cpu]
 
 Same flags and the same JSON summary as `repro.launch.train`, plus
-`--device` (default `cuda`; `cpu` only when asked). `--cluster`, the
-real-process runtime, is not ported yet.
+`--device` (default `cuda`; `cpu` only when asked). Two entry points:
+
+  in-process   the fault-tolerant trainer on one device
+  --cluster    the mpirun analogue: deploys the root/daemon/worker tree of
+               `repro_torch.runtime` with fault injection, every worker's
+               state on `--device` (the root builds the checksum kernel
+               library once before it deploys on the card)
 """
 from __future__ import annotations
 
@@ -44,10 +49,20 @@ def main(argv=None):
                     help="torch device to train on (cpu only when asked)")
     args = ap.parse_args(argv)
 
+    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_torch_ckpt_")
     if args.cluster:
-        raise NotImplementedError(
-            "--cluster (the real-process runtime) is not ported to "
-            "repro_torch yet: ROADMAP queue A, slice 3")
+        from repro_torch.runtime.root import MODES, main as root_main
+        # ulfm is sim-only: the cluster path runs it as reinit
+        mode = args.strategy if args.strategy in MODES else "reinit"
+        rt_args = ["--nodes", "2", "--ranks-per-node", "4", "--spares", "1",
+                   "--steps", str(args.steps), "--ckpt-dir", ckpt_dir,
+                   "--mode", mode, "--device", args.device]
+        if args.fail_kind:
+            rt_args += ["--fail-step", str(max(args.steps // 2, 1)),
+                        "--fail-rank", "1", "--fail-kind", args.fail_kind]
+        if args.report:
+            rt_args += ["--report", args.report]
+        return root_main(rt_args)
 
     from repro_torch.device import set_deterministic
     set_deterministic()          # before anything touches CUDA
@@ -58,7 +73,6 @@ def main(argv=None):
     from repro_torch.train import (AdamWConfig, TokenPipeline, TrainConfig,
                                    Trainer)
 
-    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_torch_ckpt_")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)

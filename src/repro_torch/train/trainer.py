@@ -17,14 +17,23 @@ actions on the training state:
             fault-free step.
   Replica   a warm shadow copy of the state, mirrored after every step,
             is promoted in place: no rollback.
+  Shrink    elastic: re-host onto a spare while the pool lasts, then
+            contract the world (a node's group, or one rank) down to the
+            `min_data_parallel` floor; a repaired node grows it back.
+
+Gray (slow/lossy) faults are observed per rank as modelled barrier
+lateness; with `mitigate=True` under the elastic strategy a persistent
+straggler is drained through the shrink path.
 
 Because the data pipeline is step-indexed and checkpoints are taken every
 policy-interval, a failed-and-recovered run converges to the bit-identical
 state of an uninterrupted run. On the card that needs deterministic
 kernels: the entry points call `repro_torch.device.set_deterministic()`.
 
-Not ported yet (ROADMAP queue A): the elastic `shrink` strategy and gray
-(slow/lossy) faults.
+The port has one device and no mesh: a shrink or grow-back bumps the mesh
+epoch as bookkeeping only and rebuilds the step function, and the global
+batch never changes, so a shrunk run's final state is bit-identical to
+the fault-free run's.
 """
 from __future__ import annotations
 
@@ -36,21 +45,20 @@ import torch
 
 from repro_torch.checkpoint import FileCheckpointer
 from repro_torch.checkpoint.policy import CheckpointPolicy
-from repro_torch.core import (ClusterView, FailureEvent, FailureType,
-                              FaultInjector, RankState, RecoveryReport,
-                              ROLLBACK, RollbackSignal, apply_recovery,
-                              get_strategy, reinit_main, root_handle_failure)
+from repro_torch.core import (ClusterView, ElasticManager, FailureEvent,
+                              FailureType, FaultInjector, MeshEpoch,
+                              RankState, RecoveryReport, ROLLBACK,
+                              RollbackSignal, apply_recovery, get_strategy,
+                              reinit_main, root_handle_failure)
 from repro_torch.device import resolve, to_device
 from repro_torch.models.model import Model
-from repro_torch.scenarios.schema import GRAY_HOWS
+from repro_torch.scenarios.schema import GRAY_DRAIN_PERSIST, GRAY_HOWS, \
+    gray_delay_s
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 from .data import TokenPipeline
 from .optimizer import AdamWConfig, adamw_init, adamw_update
 from .straggler import StragglerTracker
-
-_NOT_PORTED = ("is not ported to repro_torch yet (ROADMAP queue A: "
-               "trainer shrink and gray paths)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +80,13 @@ class TrainConfig:
     n_nodes: int = 2
     ranks_per_node: int = 4
     spare_nodes: int = 1
+    # elastic world floor, in whole node groups: shrinking recovery
+    # refuses to contract below min_data_parallel * ranks_per_node ranks
+    min_data_parallel: int = 1
+    # gray-failure policy: off tolerates a degraded rank (the run slows,
+    # nothing else changes); on drains a persistent straggler through
+    # the shrink path and re-admits it at the repair's grow-back
+    mitigate: bool = False
     seed: int = 0
     log_every: int = 0
     device: str = "cuda"
@@ -100,15 +115,19 @@ class Trainer:
         self.tc = tc
         self.device = resolve(tc.device)
         self.strategy = get_strategy(tc.strategy)
-        if self.strategy.key == "shrink":
-            raise NotImplementedError(f"strategy 'shrink' {_NOT_PORTED}")
-        sc = getattr(injector, "scenario", None)
-        if sc is not None and any(f.how in GRAY_HOWS for f in sc.faults):
-            raise NotImplementedError(f"gray faults {_NOT_PORTED}")
         self.injector = injector
         self.view = ClusterView.build(tc.n_nodes, tc.ranks_per_node,
                                       tc.spare_nodes)
         self.n_ranks = tc.n_nodes * tc.ranks_per_node
+        # elastic strategy: the membership machine owns the spare pool,
+        # the shrink/grow decisions and the dropped-rank ledger; one node
+        # = one data-parallel group. The mesh epoch is bookkeeping only
+        # here (one device, no mesh)
+        self.elastic = ElasticManager(
+            self.view, MeshEpoch(epoch=0, data_parallel=tc.n_nodes,
+                                 model_parallel=tc.ranks_per_node),
+            min_data_parallel=tc.min_data_parallel) \
+            if self.strategy.key == "shrink" else None
         self.policy = CheckpointPolicy(every_steps=tc.ckpt_every,
                                        async_file=tc.async_file_ckpt)
         self.file_ckpt = FileCheckpointer(
@@ -126,6 +145,22 @@ class Trainer:
         self.logs: list[StepLog] = []
         self.reports: list[RecoveryReport] = []
         self.straggler = StragglerTracker()
+        # gray-failure plan from the injector's scenario (if any): the
+        # (index, fault) pairs whose victims get modelled per-rank
+        # delays, and the set already cured by a drain. A gray plan
+        # re-tunes the tracker: few samples suffice, and the absolute
+        # floor at half the smallest injected delay keeps jitter out.
+        self._gray: list = []
+        self._gray_mitigated: set[int] = set()
+        sc = getattr(injector, "scenario", None)
+        if sc is not None:
+            self._gray = [(i, f) for i, f in enumerate(sc.faults)
+                          if f.how in GRAY_HOWS]
+        if self._gray:
+            self.straggler = StragglerTracker(
+                window=32, threshold_mads=4.0, min_samples=2,
+                min_flag_s=0.5 * min(gray_delay_s(f)
+                                     for _, f in self._gray))
         self._build_step()
 
     # ----------------------------------------------------------- stepping
@@ -209,8 +244,16 @@ class Trainer:
 
     # ----------------------------------------------------------- recovery
 
-    def _handle_failure(self, failure: FailureEvent) -> RecoveryReport:
+    def _handle_failure(self, failure: FailureEvent,
+                        cascade: bool = False) -> RecoveryReport:
         rep = RecoveryReport(strategy=self.strategy.name, failure=failure)
+        # cascades merge into the recovery in flight via respawn, never
+        # shrink on their own (a second failure during recovery must not
+        # drop a rank survivors are blocked waiting on) — same policy as
+        # the sim and the real root's open-join-window classification
+        if self.elastic is not None and not cascade \
+                and self.elastic.decide(failure) == "shrink":
+            return self._handle_failure_shrink(rep, failure)
 
         # --- detection (child monitor / channel break at the root)
         t0 = time.monotonic()
@@ -219,6 +262,8 @@ class Trainer:
         if len(states) != self.n_ranks:         # non-shrinking invariant
             raise RuntimeError(f"recovery changed the world: {len(states)} "
                                f"ranks, expected {self.n_ranks}")
+        if self.elastic is not None:
+            self.elastic.nonshrink_plan(failure)     # mesh bookkeeping
         rep.detect_s = time.monotonic() - t0
 
         # --- zero-rollback fast path (replica): promote the warm shadow.
@@ -279,14 +324,7 @@ class Trainer:
             self.state = _clone(buddy)
             rollback_step = step
         else:
-            self.file_ckpt.wait()
-            step, state = self.file_ckpt.load_latest()
-            if step is None:
-                self.state = self.init_state()
-                rollback_step = 0
-            else:
-                self.state = self._load_state(state)
-                rollback_step = step
+            rollback_step, self.state = self._restore_file()
         self._sync()
         rep.ckpt_read_s = time.monotonic() - t0
         rep.rollback_step = rollback_step
@@ -303,8 +341,152 @@ class Trainer:
                       "worker.recovery.compose"):
             cascade = self._injected_at(point)
             if cascade is not None:
-                self._handle_failure(cascade)
+                self._handle_failure(cascade, cascade=True)
                 return
+
+    def _restore_file(self):
+        """(rollback step, state) from the newest file checkpoint, or
+        (0, a fresh state) when there is none."""
+        self.file_ckpt.wait()
+        step, state = self.file_ckpt.load_latest()
+        if step is None:
+            return 0, self.init_state()
+        return step, self._load_state(state)
+
+    def _handle_failure_shrink(self, rep: RecoveryReport,
+                               failure: FailureEvent) -> RecoveryReport:
+        """Elastic shrinking recovery: the spare pool is exhausted, so the
+        data axis contracts instead of re-hosting — by a whole node group
+        on a node loss, or by a single rank on a process loss (uneven
+        groups). Survivors keep their device state; the mesh epoch bump
+        rebuilds the step function, and the step-indexed TokenPipeline
+        keeps the *global* batch, so the run stays on the same data
+        trajectory through the shrink."""
+        t0 = time.monotonic()
+        cmd = self.elastic.shrink(failure)   # view+mesh+dropped ledger
+        self.n_ranks = len(cmd.world)
+        rep.detect_s = time.monotonic() - t0
+
+        t0 = time.monotonic()
+        self._build_step()           # mesh epoch bumped: rebuild the step
+        if failure.kind is FailureType.NODE:
+            self.mem_ckpt = None     # the lost node took its buddy-held
+                                     # copies with it
+        rep.mpi_recovery_s = time.monotonic() - t0
+
+        # survivors roll back to their newest durable state: the memory
+        # copy when it survived (process shrink), else the file
+        # checkpoint at the cut
+        t0 = time.monotonic()
+        if self.mem_ckpt is not None:
+            step, local, _ = self.mem_ckpt
+            self.state = _clone(local)
+            rollback_step = step
+        else:
+            rollback_step, self.state = self._restore_file()
+        self._sync()
+        rep.ckpt_read_s = time.monotonic() - t0
+        rep.rollback_step = rollback_step
+        rep.world_after = self.n_ranks
+        self.reports.append(rep)
+        self._fire_cascades()
+        return rep
+
+    def _observe_gray(self, step: int):
+        """Per-rank gray-failure observation. One device has one clock,
+        so what the tracker sees is modelled barrier LATENESS relative to
+        the fastest member — healthy ranks observe 0.0, victims observe
+        the injected deceleration delay — never the measured step time
+        (immune to globally slow steps, such as the restore after a
+        recovery). With mitigate=on (and the elastic strategy, the only
+        one that can re-host), a rank on a GRAY_DRAIN_PERSIST streak is
+        drained: returns the FailureEvent that re-hosts it through the
+        ordinary shrink path, and marks the fault cured — the drained
+        rank's next incarnation (the grow-back) is healthy. Tolerate mode
+        only records the flags."""
+        if not self._gray:
+            return None
+        live = set(self.view.ranks())
+        rpn = self.tc.ranks_per_node
+        delays: dict[int, float] = {}
+        for i, f in self._gray:
+            # `step` is the post-increment count; the fault starts
+            # degrading the iteration whose top is f.step
+            if i in self._gray_mitigated or step <= f.step:
+                continue
+            if f.target == "node":
+                node = f.rank // rpn
+                victims = range(node * rpn, (node + 1) * rpn)
+            else:
+                victims = (f.rank,)
+            for r in victims:
+                delays[r] = delays.get(r, 0.0) + gray_delay_s(f)
+        for r in sorted(live):
+            self.straggler.observe(step, delays.get(r, 0.0), rank=r)
+        if not (self.tc.mitigate and self.elastic is not None):
+            return None
+        flagged = self.straggler.stragglers(GRAY_DRAIN_PERSIST) & live
+        if not flagged:
+            return None
+        self.straggler.reset_streaks()
+        for i, f in self._gray:
+            if i in self._gray_mitigated:
+                continue
+            if f.target == "node":
+                node = f.rank // rpn
+                group = set(range(node * rpn, (node + 1) * rpn)) & live
+                if group and group <= flagged:
+                    self._gray_mitigated.add(i)
+                    return FailureEvent(kind=FailureType.NODE,
+                                        node=f"node{node}", rank=f.rank,
+                                        at_step=step)
+            elif f.rank in flagged:
+                self._gray_mitigated.add(i)
+                return FailureEvent(kind=FailureType.PROCESS,
+                                    rank=f.rank, at_step=step)
+        return None
+
+    def _handle_repair(self, repair) -> Optional[RecoveryReport]:
+        """Grow-back: a repaired node rejoins at a checkpoint boundary.
+        The admission policy (the membership machine) re-admits the most
+        recently dropped group — world re-expands, mesh epoch bumps, the
+        step function is rebuilt — or, with a full world, adds the node
+        to the spare pool (no recovery, returns None)."""
+        if self.elastic is None:
+            return None              # non-elastic runs never shrank
+        node = f"node{repair.rank // self.tc.ranks_per_node}"
+        if node in self.view.children:
+            return None              # node never left the world: no-op
+        if self.elastic.admit(node) == "spare":
+            self.elastic.grant_spare(node)
+            return None
+        rep = RecoveryReport(
+            strategy=self.strategy.name,
+            failure=FailureEvent(kind=FailureType.NODE, node=node,
+                                 at_step=repair.step))
+        t0 = time.monotonic()
+        cmd = self.elastic.grow(node)
+        self.n_ranks = len(cmd.world)
+        rep.detect_s = time.monotonic() - t0
+
+        t0 = time.monotonic()
+        self._build_step()           # mesh epoch bumped: rebuild the step
+        rep.mpi_recovery_s = time.monotonic() - t0
+
+        # the re-admitted ranks restore from the durable checkpoint at
+        # the consistent cut (Table-2 "grow" scheme: file tier)
+        t0 = time.monotonic()
+        self.file_ckpt.wait()
+        step, state = self.file_ckpt.load_latest()
+        if step is not None:
+            self.state = self._load_state(state)
+            rep.rollback_step = step
+        self._sync()
+        rep.ckpt_read_s = time.monotonic() - t0
+        rep.world_after = self.n_ranks
+        self.reports.append(rep)
+        self._fire_cascades()
+        return rep
 
     # ---------------------------------------------------------------- run
 
@@ -328,6 +510,11 @@ class Trainer:
             if failure is not None:
                 self._handle_failure(failure)
                 raise RollbackSignal(self.view.epoch)
+            repair = self.injector.check_repair(step) \
+                if self.injector is not None \
+                and hasattr(self.injector, "check_repair") else None
+            if repair is not None and self._handle_repair(repair):
+                raise RollbackSignal(self.view.epoch)
 
             t0 = time.monotonic()
             batch = self.data.batch(step)
@@ -336,6 +523,13 @@ class Trainer:
             dt = time.monotonic() - t0
             step = int(self.state["step"])
             self.straggler.observe(step, dt)
+            drain = self._observe_gray(step)
+            if drain is not None:
+                # drain BEFORE this step's checkpoint commits: the last
+                # durable cut is the completed boundary — the same place
+                # the real root withholds the barrier release
+                self._handle_failure(drain)
+                raise RollbackSignal(self.view.epoch)
             if self.strategy.replicates:
                 # replication stream: mirror every step's state to the
                 # rank's off-node shadow — what makes the promote

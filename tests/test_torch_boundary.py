@@ -38,6 +38,20 @@ SLICE_MODULES = [
     "repro_torch.kernels.mamba_scan", "repro_torch.kernels.mamba_scan.ref",
     "repro_torch.kernels.mamba_scan.ops",
     "repro_torch.kernels.mamba_scan._build", "repro_torch.models.mamba",
+    "repro_torch.sim", "repro_torch.sim.costs", "repro_torch.sim.cluster",
+    "repro_torch.scenarios.engine", "repro_torch.runtime",
+    "repro_torch.runtime.transport", "repro_torch.runtime.daemon",
+    "repro_torch.runtime.root", "repro_torch.runtime.worker",
+    "repro_torch._lazy",
+]
+
+# the control plane: the root, its daemons, the transport, the simulator
+# and the scenario engine start without torch (only workers import it)
+TORCH_FREE = [
+    "repro_torch.runtime.root", "repro_torch.runtime.daemon",
+    "repro_torch.runtime.transport", "repro_torch.sim",
+    "repro_torch.scenarios.engine", "repro_torch.kernels.checksum._build",
+    "repro_torch._lazy",
 ]
 
 _CHILD = r"""
@@ -154,3 +168,47 @@ def test_default_serve_device_raises_without_card():
     finally:                  # the CLI sets global torch state; restore it
         torch.use_deterministic_algorithms(deterministic)
         torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def test_control_plane_never_loads_torch():
+    import json
+    child = ("import importlib, json, sys\n"
+             "for m in json.loads(sys.argv[1]):\n"
+             "    importlib.import_module(m)\n"
+             "from repro_torch.train.straggler import StragglerTracker\n"
+             "print(json.dumps(sorted(m for m in sys.modules\n"
+             "                        if m.split('.')[0] in "
+             "('torch', 'numpy', 'jax'))))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", child,
+                           json.dumps(TORCH_FREE)],
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_runtime_default_device_is_cuda(tmp_path):
+    """The worker, the root, the daemon and `run_real` default to the
+    card; without one, a worker raises before it registers and
+    `run_real` fails."""
+    import inspect
+    from repro_torch.runtime import daemon, root, worker
+    from repro_torch.scenarios import engine
+    from repro_torch.scenarios.catalog import T22, fault_free
+    assert inspect.signature(engine.run_real).parameters["device"].default \
+        == "cuda"
+    for mod in (worker, root, daemon):
+        src = inspect.getsource(mod.main)
+        assert 'add_argument("--device", default="cuda"' in src, mod
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        # port 1 is never a daemon: the worker must raise before connecting
+        worker.main(["--rank", "0", "--world", "1", "--daemon-port", "1",
+                     "--dim", "4", "--ckpt-dir", str(tmp_path)])
+    # without nvcc the root fails at once building the kernel library;
+    # with nvcc but no card every worker dies before it registers
+    with pytest.raises((RuntimeError, subprocess.TimeoutExpired)):
+        engine.run_real(fault_free(T22, steps=2, dim=4), "reinit",
+                        str(tmp_path / "real"), timeout=60)

@@ -121,15 +121,21 @@ def test_cascade_during_recovery(tmp_path, reference):
     assert _digest(tr) == reference[0]
 
 
-def test_shrink_and_gray_faults_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="shrink"):
-        _trainer(tmp_path, "shrink")
+def test_shrink_and_gray_faults_not_ported(tmp_path, reference):
+    """The shrink strategy and gray faults, which earlier slices of the
+    port refused, are ported: a gray slow rank under reinit is tolerated
+    (flagged, nothing recovers) and the run is bit-identical; the elastic
+    paths in full are in test_torch_trainer_ft.py."""
+    tr = _trainer(tmp_path, "shrink", tag="s", steps=1)
+    assert tr.elastic is not None and tr.elastic.mesh.epoch == 0
     sc = Scenario(name="gray", steps=STEPS,
                   topology=Topology(nodes=2, ranks_per_node=4, spares=0),
                   faults=(Fault("rank", 1, 4, how="slow", factor=6.0),),
                   strategies=("reinit",))
-    with pytest.raises(NotImplementedError, match="gray"):
-        _trainer(tmp_path, injector=ScenarioInjector(sc))
+    tr = _trainer(tmp_path, injector=ScenarioInjector(sc), tag="g")
+    res = tr.run()
+    assert res["reports"] == [] and set(res["stragglers_by_rank"]) == {1}
+    assert _digest(tr) == reference[0]
 
 
 def test_ulfm_charges_heartbeat_overhead(tmp_path):
@@ -223,7 +229,18 @@ def test_cli_prints_reference_json_keys(tmp_path, capsys):
     assert ours["arch"] == ref["arch"]
 
 
-def test_cli_cluster_not_ported():
+def test_cli_cluster_not_ported(tmp_path, monkeypatch):
+    """`--cluster`, which earlier slices of the port refused, deploys the
+    port's real-process runtime: a process fault under reinit resumes at
+    the fail step and every rank reports its checksum."""
+    import os
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        main(["--cluster", "--device", "cpu"])
+    monkeypatch.setenv("PYTHONPATH", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
+    report = tmp_path / "report.json"
+    assert main(["--cluster", "--device", "cpu", "--steps", "4",
+                 "--fail-kind", "process", "--ckpt-dir", str(tmp_path / "c"),
+                 "--report", str(report)]) == 0
+    rep = json.loads(report.read_text())
+    assert [ev["resume_step"] for ev in rep["events"]] == [2]
+    assert sorted(rep["checksums"]) == [str(r) for r in range(8)]
