@@ -24,13 +24,14 @@ Phases (any failure exits non-zero):
      by the host in event time, not by the card);
   3. [flash] hold F1 against its plain version at the prefill shapes of
      the serving paths (qwen2-7b at S 512, 384 and the odd 77; paper-demo
-     at S 4 and 6) and at two extra cases (a query suffix Sq < Sk, and
+     at S 4 and 6; zamba2-7b's shared block at S 512, 384 and 77, head
+     dim 112) and at two extra cases (a query suffix Sq < Sk, and
      paper-demo at S 512) in bf16 (the tensor-core kernel) and fp32 (the
      FMA kernel), causal and not, to 2e-2 (bf16) and 2e-5 (fp32); check
      that a row's bits do not depend on the batch and that the model
      layout, read by strides, gives the flattened layout's bits; time F1,
      its plain version and `scaled_dot_product_attention` (event, host
-     issue and device time);
+     issue and device time), qwen2-7b's and zamba2-7b's S 512 among them;
   3b. [scan] hold S1 (y and h_final) against its plain version to 1e-4
      at the prefill shapes of the falcon-mamba-7b serving path (B 4,
      S 512, 384 and 77, d_inner 8192, ds 16), at odd shapes (S 1, S 3,
@@ -77,7 +78,8 @@ Phases (any failure exits non-zero):
      must launch once per layer and prefill); then, through the API, the
      same requests served once straight through and once with a
      snapshot/restore in the middle (bit-identical transcripts and state),
-     and prefill logits of `pallas` against `chunked`;
+     a profiled decode step and prefill call (host and device time, the
+     top kernels), and prefill logits of `pallas` against `chunked`;
   7. [serve-cluster] the `fast` cells of the serving catalog under both
      reinit and replica at paper-demo full width, each lossless against
      its fault-free run;
@@ -89,15 +91,25 @@ Phases (any failure exits non-zero):
      API a straight run, a profiled decode step, a mid-run snapshot/restore
      (bit-identical transcripts and {h, conv} state), and prefill logits of
      `pallas` against `chunked`, with each prefill call's wall time;
+  8b. [serve-hybrid] the same at the full published width and depth of
+     zamba2-7b (the hybrid family: 81 Mamba2 layers in 13 groups of 6,
+     each group followed by one weight-shared attention block of head
+     dim 112, and a tail of 3; 6,636,442,832 float32 parameters, drawn
+     once falcon-mamba-7b's are freed): F1 must launch exactly 13 groups x
+     3 prefill calls = 39 times on the serve CLI's run; the Mamba2 layers
+     run the chunked SSD (torch ops, no kernel of the port); the mid-run
+     snapshot/restore must give every leaf of the nested state bit for
+     bit, and `pallas` is held to `chunked` in float32 compute, the served
+     bf16 difference printed beside it;
   9. the kernel report. Launches are counted per path: the counts are
      set to 0 just before each path is driven and read just after it.
      K2 must launch on the full-save runs (the shrink and gray runs
      included), K1 on the delta-cadence runs and in every runtime run,
      K3 (which training never reaches: AdamW dirties every tile) on the
-     sparse-dirt saves, F1 on both dense serving paths and S1 on the
-     falcon-mamba-7b one; every shape, dtype and mask F1 was given must
-     be one that phase 3 checked, and every shape S1 was given one that
-     phase 3b checked.
+     sparse-dirt saves, F1 on both dense serving paths and the zamba2-7b
+     one and S1 on the falcon-mamba-7b one; every shape, dtype and mask F1
+     was given must be one that phase 3 checked, and every shape S1 was
+     given one that phase 3b checked.
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -133,21 +145,26 @@ STEPS = 6
 
 # F1's shapes, (B, Sq, Sk, H, Hkv, hd). First the prefills of the driven
 # serving paths (every prefill group is lane-padded to B 4): the serve
-# CLI's qwen2-7b groups and the serving cells' paper-demo prompts (the
-# load generator's lengths 4 and 6). Every shape F1 is given on those
-# paths must be among them (checked after the paths ran). Then extra
-# cases that no driven path gives F1.
+# CLI's qwen2-7b and zamba2-7b groups and the serving cells' paper-demo
+# prompts (the load generator's lengths 4 and 6). Every shape F1 is given
+# on those paths must be among them (checked after the paths ran). Then
+# extra cases that no driven path gives F1.
 FLASH_SHAPES = {
     "qwen2-7b prefill S 512": (4, 512, 512, 28, 4, 128),
     "qwen2-7b prefill S 384": (4, 384, 384, 28, 4, 128),
     "qwen2-7b prefill odd S 77": (4, 77, 77, 28, 4, 128),
     "paper-demo prefill S 4": (4, 4, 4, 12, 12, 64),
     "paper-demo prefill S 6": (4, 6, 6, 12, 12, 64),
+    "zamba2-7b prefill S 512": (4, 512, 512, 32, 32, 112),
+    "zamba2-7b prefill S 384": (4, 384, 384, 32, 32, 112),
+    "zamba2-7b prefill odd S 77": (4, 77, 77, 32, 32, 112),
     "extra: qwen2-7b suffix Sq<Sk": (4, 128, 640, 28, 4, 128),
     "extra: paper-demo S 512": (4, 512, 512, 12, 12, 64),
 }
-# the shape that stands for F1 on the kernels line
+# the shape that stands for F1 on the kernels line, and F1 at head dim 112
+# (zamba2-7b's shared block), timed beside it
 FLASH_MAIN = "qwen2-7b prefill S 512"
+FLASH_HD112 = "zamba2-7b prefill S 512"
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # the serve CLI's request set: two prefill groups (512, 384) and a 77
 SERVE_PROMPTS = (512, 512, 512, 512, 384, 384, 384, 77)
@@ -186,6 +203,15 @@ SSM_FLAGS = ["--arch", "falcon-mamba-7b", *SERVE_FLAGS[2:]]
 # the largest logit (64 layers; the chunked route against itself at two
 # chunk lengths, printed beside it, shows the spread of that order alone)
 SSM_LOGIT_TOL_F32 = 1e-3
+# pallas vs chunked prefill logits of zamba2-7b in float32 compute, where
+# only the 13 shared-block attentions differ (F1's FMA kernel against the
+# chunked torch attention, both fp32, sums in another order): within this
+# share of the largest logit, as for the 64-layer Mamba (a random 81-layer
+# stack amplifies an fp32 rounding far less than a bf16 one). The bf16
+# (served) difference is printed beside it, with no bound: there every
+# rounding of the activations differs once the attention sums do, and a
+# deep random stack amplifies that as falcon-mamba-7b's did
+HYBRID_LOGIT_TOL_F32 = 1e-3
 # the random models' embedding table is drawn at scale 1.0 and tied to the
 # unembedding, so greedy decode repeats the last prompt token whatever the
 # attention computes; the API checks scale it so transcripts depend on it
@@ -233,16 +259,21 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> tuple[float, list]:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in events)
-    if total <= 0:
-        fail("the profiler saw no device time")
-    return total / 1e3 / iters, sorted(e.key for e in events)
+    # a session now and then records no kernel at all (on the H100, for
+    # K3's 3.5 us launches): take another, up to three in all
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in events)
+        if total > 0:
+            return total / 1e3 / iters, sorted(e.key for e in events)
+        print(f"[device] profiler session {attempt + 1} of 3 recorded no "
+              "device time")
+    fail("the profiler saw no device time")
 
 
 def reset_launches() -> None:
@@ -451,15 +482,17 @@ def phase_flash(torch) -> tuple[dict, set]:
                     fail(f"F1 disagrees with its plain version: {name} "
                          f"{dname} causal={causal}")
 
-    q, k, v = inputs(FLASH_SHAPES[FLASH_MAIN], torch.bfloat16)
-    whole = fa.flash_attention_kernel(q, k, v, causal=True)
-    for b in range(q.shape[0]):
-        alone = fa.flash_attention_kernel(q[b:b + 1], k[b:b + 1],
-                                          v[b:b + 1], causal=True)
-        if not torch.equal(whole[b:b + 1], alone):
-            fail(f"F1 lane {b} differs from the same row launched alone")
-    print("[flash] lane independence: each lane of the B=4 qwen2-7b bf16 "
-          "launch is bitwise equal to that row launched alone")
+    for name in (FLASH_MAIN, FLASH_HD112):
+        q, k, v = inputs(FLASH_SHAPES[name], torch.bfloat16)
+        whole = fa.flash_attention_kernel(q, k, v, causal=True)
+        for b in range(q.shape[0]):
+            alone = fa.flash_attention_kernel(q[b:b + 1], k[b:b + 1],
+                                              v[b:b + 1], causal=True)
+            if not torch.equal(whole[b:b + 1], alone):
+                fail(f"F1 lane {b} of {name} differs from the same row "
+                     "launched alone")
+        print(f"[flash] lane independence: each lane of the B=4 {name} "
+              "bf16 launch is bitwise equal to that row launched alone")
     shape = FLASH_SHAPES[FLASH_MAIN]
     for dname in ("bfloat16", "float32"):
         q, k, v = inputs(shape, getattr(torch, dname))
@@ -476,7 +509,7 @@ def phase_flash(torch) -> tuple[dict, set]:
           "layout's bits (qwen2-7b S 512, bf16 and fp32, causal and not)")
 
     rows = {}
-    for name in (FLASH_MAIN, "paper-demo prefill S 6",
+    for name in (FLASH_MAIN, FLASH_HD112, "paper-demo prefill S 6",
                  "extra: paper-demo S 512"):
         shape = FLASH_SHAPES[name]
         q, k, v = inputs(shape, torch.bfloat16)
@@ -509,6 +542,9 @@ def phase_flash(torch) -> tuple[dict, set]:
                             lambda sdpa=sdpa: nondeterministic(torch, sdpa)))
     checked = {(FLASH_SHAPES[name], dname, causal)
                for name, dname, causal in errs}
+    # the kernels line carries the hd-112 row beside the main one (its
+    # device times are filled in place by phase_device_times)
+    rows[FLASH_MAIN]["hd112"] = rows[FLASH_HD112]
     return rows[FLASH_MAIN], checked
 
 
@@ -667,6 +703,14 @@ def phase_scan(torch, per_exp: float) -> tuple[dict, set]:
     return rows[SCAN_MAIN], checked
 
 
+def state_shapes(state) -> dict:
+    """{key path: shape} of every leaf of a (nested) decode state."""
+    if isinstance(state, dict):
+        return {f"{k}/{p}" if p else k: v for k in sorted(state)
+                for p, v in state_shapes(state[k]).items()}
+    return {"": tuple(state.shape)}
+
+
 def _serve_prompts(vocab: int, seed: int = 0) -> list:
     import numpy as np
     rng = np.random.default_rng(seed)
@@ -674,11 +718,46 @@ def _serve_prompts(vocab: int, seed: int = 0) -> list:
             for n in SERVE_PROMPTS]
 
 
+def kernel_layers(cfg) -> int:
+    """The layers of `cfg` that launch the serving path's kernel once a
+    prefill call: every layer, but in a hybrid model only the shared
+    attention block, once a group of `attn_every` Mamba2 layers."""
+    return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" \
+        else cfg.n_layers
+
+
+def print_profile(torch, tag: str, what: str, unit: str, n: int, fn) -> None:
+    """Run `fn` `n` times under the profiler and print the host-clock and
+    device time a call, the device's busy share of the host time, and the
+    kernels that took the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.monotonic()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.monotonic() - t1) * 1e3 / n
+    events = [e for e in prof.key_averages()      # kernels, not host ops
+              if e.device_type == DeviceType.CUDA]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+    launches = sum(e.count for e in events) // n
+    print(f"[{tag}] profile of {what}: {host_ms:.1f} ms a {unit} on the "
+          f"host clock, {dev_ms:.1f} ms of device time a {unit} (the card "
+          f"busy {dev_ms / host_ms:.0%} of it), {launches} device kernels "
+          f"and copies a {unit}; top kernels by device time a {unit}:")
+    for e in events[:6]:
+        print(f"[{tag}]   {e.self_device_time_total / 1e3 / n:8.2f} ms "
+              f"x{e.count // n:<5d} {e.key[:90]}")
+
+
 def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
-    """Phases 6 and 8: `arch` at full width and depth, served with
-    `--attn-impl pallas`, where `kernel` must launch once per layer and
-    prefill call. Returns the launches of the serve CLI's run; `recording`
-    records the kernel's cases on it."""
+    """Phases 6, 8 and 8b: `arch` at full width and depth, served with
+    `--attn-impl pallas`, where `kernel` must launch once per layer (per
+    group, in a hybrid model) and prefill call. Returns the launches of
+    the serve CLI's run; `recording` records the kernel's cases on it."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models.model import Model
@@ -691,6 +770,16 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
         print(f"[{tag}] {arch}: {cfg.n_layers} Mamba1 layers, d_model "
               f"{cfg.d_model}, d_inner {cfg.d_inner}, ds {cfg.ssm_state}, "
               f"conv {cfg.ssm_conv}, vocab {cfg.vocab_size}; depth not cut")
+    elif cfg.family == "hybrid":
+        G, tail = divmod(cfg.n_layers, cfg.attn_every)
+        print(f"[{tag}] {arch}: {cfg.n_layers} Mamba2 layers ({G} groups of "
+              f"{cfg.attn_every}, each followed by the shared attention "
+              f"block, and a tail of {tail}), d_model {cfg.d_model}, d_inner "
+              f"{cfg.d_inner}, {cfg.n_ssm_heads} ssm heads of "
+              f"{cfg.ssm_head_dim}, ds {cfg.ssm_state}, ssm_chunk "
+              f"{cfg.ssm_chunk}; shared block {cfg.n_heads}/"
+              f"{cfg.n_kv_heads} heads, hd {cfg.head_dim}, d_ff {cfg.d_ff}; "
+              f"vocab {cfg.vocab_size}; depth not cut")
     else:
         print(f"[{tag}] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
               f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}, "
@@ -707,12 +796,14 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
         fail(f"{arch} serve CLI failed")
     out = json.loads(buf.getvalue())
     print(f"[{tag}] CLI {' '.join(flags)}: {json.dumps(out)}")
-    want = cfg.n_layers * out["prefill_calls"]
+    n = kernel_layers(cfg)
+    want = n * out["prefill_calls"]
     if out["completed"] != len(SERVE_PROMPTS):
         fail(f"{arch} serve CLI did not complete every request")
     if launches[kernel] != want or want == 0:
         fail(f"{kernel} launched {launches[kernel]} times on the {arch} "
-             f"serve path, expected {cfg.n_layers} layers x "
+             f"serve path, expected {n} "
+             f"{'groups' if cfg.family == 'hybrid' else 'layers'} x "
              f"{out['prefill_calls']} prefills = {want}")
     print(f"[{tag}] launches {launches}")
     gc.collect()
@@ -760,38 +851,25 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
     snap = first.snapshot()
     # keep decoding (the live state moves on in place), under the
     # profiler: where a decode step's time goes on the card
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.monotonic()
-        for _ in range(4):
-            first.step()
-        torch.cuda.synchronize()
-        step_ms = (time.monotonic() - t1) * 1e3 / 4
-    events = [e for e in prof.key_averages()      # kernels, not host ops
-              if e.device_type == DeviceType.CUDA]
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / 4
-    print(f"[{tag}] profile of 4 decode steps (4 slots): {step_ms:.1f} ms "
-          f"a step on the host clock, {device_ms:.1f} ms of device time a "
-          f"step; top kernels by device time a step:")
-    for e in events[:6]:
-        print(f"[{tag}]   {e.self_device_time_total / 1e3 / 4:8.2f} ms "
-              f"x{e.count // 4:<5d} {e.key[:90]}")
+    print_profile(torch, tag, "4 decode steps (4 slots)", "step", 4,
+                  first.step)
     second = ServeEngine(model, params, n_slots=4, max_len=1024)
     second.restore(snap)
     got = {r.rid: r.out for r in second.run_until_drained()}
     if got != want:
         fail(f"{arch}: a snapshot/restore in the middle changed the "
              "transcripts")
-    if not all(torch.equal(straight.state[k], second.state[k])
-               for k in straight.state):
+    # leaf by leaf: a hybrid's state is nested ({mamba, tail, attn})
+    leaves = tree_leaves(straight.state)
+    if state_shapes(second.state) != state_shapes(straight.state) or not all(
+            torch.equal(a, b)
+            for a, b in zip(leaves, tree_leaves(second.state))):
         fail(f"{arch}: a snapshot/restore in the middle changed the final "
-             f"decode state {sorted(straight.state)}")
+             f"decode state {state_shapes(straight.state)}")
     print(f"[{tag}] snapshot at step 8, 4 more steps, restore into a new "
-          f"engine: transcripts of {len(got)} requests and the final decode "
-          f"state {sorted(straight.state)} bit-identical to the straight "
+          f"engine: transcripts of {len(got)} requests and all "
+          f"{len(leaves)} leaves of the final decode state "
+          f"{state_shapes(straight.state)} bit-identical to the straight "
           f"run; {len({tuple(v) for v in want.values()})} distinct "
           f"transcripts")
     del straight, first, second, snap
@@ -809,16 +887,19 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
 
     chunked = Model(cfg, ExecConfig(attn_impl="chunked"))
     ssm = cfg.family == "ssm"
-    if ssm:
-        # a random 64-layer Mamba in bf16 amplifies the scans' other order
-        # of summation far past any tight tolerance (so does the chunked
-        # route against itself at another chunk length, printed below):
-        # S1 is held to the chunked route in float32 compute, where
-        # nothing but that order differs
+    in_f32 = cfg.family in ("ssm", "hybrid")
+    if in_f32:
+        # a random deep Mamba stack in bf16 amplifies the kernels' other
+        # order of summation far past any tight tolerance (for Mamba1 so
+        # does the chunked route against itself at another chunk length,
+        # printed below): the kernel is held to the chunked route in
+        # float32 compute, where nothing but that order differs (for the
+        # hybrid that also runs F1's float32 kernel at hd 112)
         f32 = cfg.replace(compute_dtype="float32")
         held = (Model(f32, ExecConfig(attn_impl="pallas")),
                 Model(f32, ExecConfig(attn_impl="chunked")))
-        tol, held_dtype = SSM_LOGIT_TOL_F32, "float32"
+        tol = SSM_LOGIT_TOL_F32 if ssm else HYBRID_LOGIT_TOL_F32
+        held_dtype = "float32"
     else:
         held, tol, held_dtype = (model, chunked), LOGIT_TOL, "bfloat16"
     for rows in (prompts[:4], prompts[4:7], prompts[7:]):
@@ -828,7 +909,7 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
         lc, c_ms = prefill(chunked, toks)
         served = (f"wall {p_ms:.1f} ms pallas, {c_ms:.1f} ms chunked "
                   f"({cfg.compute_dtype}, the served dtype)")
-        if ssm:
+        if in_f32:
             rel = float((lp - lc).abs().max()) / float(lc.abs().max())
             same = int((lp.argmax(-1) == lc.argmax(-1)).sum())
             served += (f", logits max diff {rel:.3g} of the largest, first "
@@ -850,8 +931,13 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
               f"{len(rows)} lanes")
         if rel > tol:
             fail(f"pallas and chunked prefill logits differ at S {n}")
+    toks = torch.tensor(prompts[:4], device="cuda")
+    with torch.no_grad():
+        print_profile(torch, tag, f"a prefill call (S 512 x 4, pallas, "
+                      f"{cfg.compute_dtype})", "call", 1,
+                      lambda: model.prefill(params, {"tokens": toks},
+                                            max_len=1024))
     if ssm:
-        toks = torch.tensor(prompts[:4], device="cuda")
         for c in (cfg, f32):
             lc = prefill(Model(c, ExecConfig(attn_impl="chunked")), toks)[0]
             l64 = prefill(Model(c.replace(ssm_chunk=64),
@@ -1385,7 +1471,8 @@ def main() -> int:
         print(f"[build] {name}: {kl.info['seconds']:.1f} s "
               f"({kl.info['path']})")
         for line in kl.info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Function properties" in line):
                 print(f"[build] {line.strip()}")
 
     check_tensor_cores(fa_build.KERNELS.info["path"])
@@ -1416,6 +1503,9 @@ def main() -> int:
     by_path["serve-falcon-mamba-7b"] = phase_serve(
         torch, "falcon-mamba-7b", "selective_scan",
         recording_scan_shapes(scan_seen), "serve-ssm")
+    by_path["serve-zamba2-7b"] = phase_serve(
+        torch, "zamba2-7b", "flash_attention",
+        recording_flash_shapes(flash_seen), "serve-hybrid")
     unchecked = sorted(flash_seen - flash_checked)
     if unchecked:
         fail(f"the serving paths gave F1 cases that [flash] did not hold "
@@ -1434,7 +1524,8 @@ def main() -> int:
                 "tile_checksums": ["cr-node-delta4", *runtime],
                 "gather_tiles": ["sparse-dirt"],
                 "flash_attention": ["serve-qwen2-7b",
-                                    "serve-cluster-paper-demo"],
+                                    "serve-cluster-paper-demo",
+                                    "serve-zamba2-7b"],
                 "selective_scan": ["serve-falcon-mamba-7b"]}
     for name, paths in required.items():
         for path in paths:

@@ -30,7 +30,8 @@
 //    the bytes of q, k, v read once and o written once. At the serving
 //    paths' prefill (S 512) the bytes bound it at the card's bf16
 //    tensor-core rate; the FLOPs do only past S ~ 675 with qwen2-7b's heads
-//    (28 query heads on 4 kv heads, hd 128).
+//    (28 query heads on 4 kv heads, hd 128), past S ~ 1180 with zamba2-7b's
+//    (32 on 32, hd 112).
 //
 //    Dispatch is by dtype, not by size: every bfloat16 launch runs the
 //    tensor-core kernel, every float32 launch the FMA kernel.
@@ -55,8 +56,14 @@
 //    MN-major from shared memory, as FlashAttention-2/3 do, while l sums
 //    the fp32 p. Causal launches schedule the longest query tiles first.
 //    The output is scaled by 1/l in registers and stored to its strides.
-//    hd 16 runs the hd-64 tiles: TMA fills the columns past hd with zeros,
-//    which add nothing to either product, and only hd columns are stored.
+//    hd 16 runs the hd-64 tiles and hd 112 (zamba2-7b's shared block) the
+//    hd-128 tiles: TMA fills the columns past hd with zeros, which add
+//    nothing to either product, and only hd columns are stored. At hd 112
+//    that wastes 16 of every 128 columns of both products (12.5 % of the
+//    MMA work); the bytes, which bound the serving shapes, are hd's. The
+//    tensor maps stay legal there: a bf16 row is 224 bytes and every
+//    global stride a multiple of 16 bytes (7168 bytes a sequence step at
+//    32 heads), and the scale is the caller's 1/sqrt(hd), not 1/sqrt(128).
 //
 //    Which CTA runs an item, and in what order, changes no bits: an item is
 //    computed the same way wherever it runs.
@@ -68,7 +75,10 @@
 //    groups x 8 column groups) owns 4 query rows: it scores them against
 //    keys cg, cg+8, cg+16, cg+24 of the tile, the 8 threads of a row group
 //    reduce the row max and sum with warp shuffles, the probabilities go to
-//    shared memory, and each thread accumulates float4 columns of its rows.
+//    shared memory, and each thread accumulates float4 columns of its rows:
+//    columns cg, cg+8, ... of the hd/4 (at hd 112, 28 columns over the 8
+//    column groups, the last group's fourth slot idle). Shared memory is
+//    67,328 bytes at hd 112 and 75,520 at hd 128, opted in past 48 KB.
 //
 // The entry point launches on the stream it is given, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() (or the tensor-map
@@ -857,8 +867,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // dtype: 0 float32 (FMA kernel), 1 bfloat16 (tensor-core kernel). hd: 16,
-// 64 or 128. `st` holds 12 element strides: (batch, seq, head) of q, k, v
-// and o in that order. The caller checks shapes, that the head dimension is
+// 64, 112 or 128; any other is refused (cudaErrorInvalidValue). `st` holds
+// 12 element strides: (batch, seq, head) of q, k, v and o in that order. The caller checks shapes, that the head dimension is
 // contiguous, and that every buffer and stride is a multiple of 16 bytes.
 int rt_flash_attention(const void* q, const void* k, const void* v, void* o,
                        int dtype, int B, int H, int Hkv, int Sq, int Sk,
@@ -878,10 +888,12 @@ int rt_flash_attention(const void* q, const void* k, const void* v, void* o,
   if (dtype == 0 && B * H <= 65535) {
     if (hd == 16) err = fma::launch<16>(F1_ARGS);
     else if (hd == 64) err = fma::launch<64>(F1_ARGS);
+    else if (hd == 112) err = fma::launch<112>(F1_ARGS);
     else if (hd == 128) err = fma::launch<128>(F1_ARGS);
   } else if (dtype == 1) {
     if (hd == 16) err = tc::launch<16, 64>(F1_ARGS);
     else if (hd == 64) err = tc::launch<64, 64>(F1_ARGS);
+    else if (hd == 112) err = tc::launch<112, 128>(F1_ARGS);
     else if (hd == 128) err = tc::launch<128, 128>(F1_ARGS);
   }
 #undef F1_ARGS

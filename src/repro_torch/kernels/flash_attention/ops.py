@@ -26,8 +26,9 @@ from .ref import flash_attention_ref
 #: kernel launches per wrapper; only the CUDA branch counts
 LAUNCHES = {"flash_attention": 0}
 
-#: head dims F1 is compiled for (see `rt_flash_attention` in the source)
-HEAD_DIMS = (16, 64, 128)
+#: head dims F1 is compiled for (see `rt_flash_attention` in the source);
+#: 112 is zamba2-7b's shared attention block (d_model 3584 / 32 heads)
+HEAD_DIMS = (16, 64, 112, 128)
 #: dtype -> F1's kernel: 0 the fp32 FMA kernel, 1 the bf16 tensor-core one
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -8,11 +8,14 @@ The flags and JSON output of `repro.launch.serve`, plus `--device`
 (default `cuda`; `cpu` only when asked) and `--attn-impl` (the execution
 knob `ExecConfig.attn_impl`). `pallas` runs the port's kernels on
 prefill: attention through the CUDA kernel F1 in a dense model (qwen2-7b,
-paper-demo), and every layer's selective scan through the CUDA kernel S1
-in an ssm model (`--arch falcon-mamba-7b`, Mamba1); decode runs no kernel
-of the port. `--prompt-len` takes one length for every request or a
-comma-separated length per request. Parameters are random, drawn from
-seed 0 on the device.
+paper-demo), every layer's selective scan through the CUDA kernel S1 in
+an ssm model (`--arch falcon-mamba-7b`, Mamba1), and in the hybrid
+`--arch zamba2-7b` the shared attention block through F1 (head dim 112,
+once per group of 6 layers) while its Mamba2 layers run the chunked SSD,
+as under every `--attn-impl` (S % min(ssm_chunk, S) == 0; ssm_chunk is 128
+at full width); decode runs no kernel of the port. `--prompt-len` takes
+one length for every request or a comma-separated length per request.
+Parameters are random, drawn from seed 0 on the device.
 """
 from __future__ import annotations
 
@@ -34,7 +37,9 @@ def _prompt_lens(text: str, n: int) -> list[int]:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="paper-demo")
+    ap.add_argument("--arch", default="paper-demo",
+                    help="dense (qwen2-7b, paper-demo), ssm "
+                         "(falcon-mamba-7b) or hybrid (zamba2-7b)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", default="16",
@@ -48,8 +53,9 @@ def main(argv=None):
     ap.add_argument("--attn-impl", default="chunked",
                     choices=["naive", "chunked", "pallas"],
                     help="pallas: prefill through the port's CUDA kernels "
-                         "(attention by F1; an ssm model's selective scan "
-                         "by S1)")
+                         "(attention by F1, zamba2-7b's shared block "
+                         "included; an ssm model's selective scan by S1; "
+                         "Mamba2 layers stay on the chunked SSD)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cpu only when asked)")
     args = ap.parse_args(argv)

@@ -1,10 +1,12 @@
-"""Model API of the dense and ssm (Mamba1) families: config -> init /
-forward / loss_fn / prefill / decode_step.
+"""Model API of the dense, ssm (Mamba1) and hybrid (Mamba2 + a shared
+attention block, zamba2-style) families: config -> init / forward /
+loss_fn / prefill / decode_step.
 
 The parameter tree has the JAX package's structure and leaf paths
-(`embedding/table`, `stack/layers/...` with a leading L axis, `ln_f`),
-so either package reads the other's checkpoints, and `params_from_jax`
-carries the reference's parameters (or whole train state) across.
+(`embedding/table`, `stack/layers/...` with a leading L axis, a hybrid's
+`stack/shared/...` and `stack/tail/...`, `ln_f`), so either package reads
+the other's checkpoints, and `params_from_jax` carries the reference's
+parameters (or whole train state) across.
 """
 from __future__ import annotations
 
@@ -14,12 +16,13 @@ from typing import Any
 import torch
 
 from ..device import resolve, to_device
+from ..tree import tree_map
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from .config import ModelConfig
 from .layers import (embed, embedding_init, mlp, rmsnorm, rmsnorm_init,
                      torch_dtype, unembed)
-from .transformer import (ExecConfig, _layer, _require_ported,
+from .transformer import (ExecConfig, _layer, _n_stacked, _require_ported,
                           stack_forward, stack_init)
 
 Params = Any
@@ -102,16 +105,47 @@ class Model:
         """The zeroed decode state on `device` (`cuda` unless named):
         dense, KV caches {"k", "v"} of shape (L, batch, max_len, Hkv, hd)
         in the compute dtype; ssm, {"h": (L, batch, di, ds), "conv":
-        (L, batch, K-1, di)} in float32, whatever max_len is."""
+        (L, batch, K-1, di)} in float32, whatever max_len is; hybrid,
+        {"mamba": {"h": (G, E, batch, nh, hp, ds), "conv": (G, E, batch,
+        K-1, di+2ds)} in float32, "tail": the same leaves with lead (T,)
+        (absent when T is 0), "attn": {"k", "v"} (G, batch, max_len, Hkv,
+        hd) in the compute dtype}, with G, T = divmod(n_layers,
+        attn_every) and E = attn_every."""
         cfg = self.cfg
         _require_ported(cfg)
+        device = resolve(device)
+        dt = torch_dtype(cfg.compute_dtype)
         if cfg.family == "ssm":
             return mamba_mod.mamba_init_state(cfg, batch, torch.float32,
-                                              resolve(device),
-                                              lead=(cfg.n_layers,))
-        return attn_mod.init_kv_cache(cfg, batch, max_len, cfg.n_layers,
-                                      torch_dtype(cfg.compute_dtype),
-                                      resolve(device))
+                                              device, lead=(cfg.n_layers,))
+        if cfg.family == "hybrid":
+            G, tail = divmod(cfg.n_layers, cfg.attn_every)
+            state = {"mamba": mamba_mod.mamba_init_state(
+                cfg, batch, torch.float32, device,
+                lead=(G, cfg.attn_every))}
+            if tail:
+                state["tail"] = mamba_mod.mamba_init_state(
+                    cfg, batch, torch.float32, device, lead=(tail,))
+            state["attn"] = attn_mod.init_kv_cache(cfg, batch, max_len, G,
+                                                   dt, device)
+            return state
+        return attn_mod.init_kv_cache(cfg, batch, max_len, cfg.n_layers, dt,
+                                      device)
+
+    def decode_state_batch_axes(self):
+        """A tree shaped like `init_decode_state`'s whose leaves are the
+        batch axis of each state leaf: 1 under a lead of one stacked axis
+        (layers, groups, the tail), 2 under a hybrid's (G, E) lead. The
+        serving engine splices prefilled lanes along these axes."""
+        cfg = self.cfg
+        _require_ported(cfg)
+        if cfg.family == "hybrid":
+            axes = {"mamba": {"h": 2, "conv": 2}, "attn": {"k": 1, "v": 1}}
+            if cfg.n_layers % cfg.attn_every:
+                axes["tail"] = {"h": 1, "conv": 1}
+            return axes
+        keys = ("h", "conv") if cfg.family == "ssm" else ("k", "v")
+        return {k: 1 for k in keys}
 
     # ------------------------------------------------------------ prefill
 
@@ -119,42 +153,76 @@ class Model:
         """Process a prompt; returns (last-position logits (B,1,V), decode
         state). The returned KV caches are padded to max_len so decode can
         continue in place; an ssm state is the recurrent state after the
-        prompt (`attn_impl="pallas"`: scanned by S1 on the card)."""
-        cfg, ec = self.cfg, self.ec
+        prompt (`attn_impl="pallas"`: scanned by S1 on the card, in a
+        Mamba1 model). A hybrid model's shared block runs its attention
+        through F1 under "pallas", once per group."""
+        cfg = self.cfg
         _require_ported(cfg)
         dt = torch_dtype(cfg.compute_dtype)
         x = embed(params["embedding"], batch["tokens"], dt)
         if cfg.family == "ssm":
             return self._prefill_ssm(params, x, dt)
+        if cfg.family == "hybrid":
+            return self._prefill_hybrid(params, x, dt, max_len)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None, :]
         state = attn_mod.init_kv_cache(cfg, B, max(max_len, S), cfg.n_layers,
                                        dt, x.device)
         for i in range(cfg.n_layers):
-            lp = _layer(params["stack"]["layers"], i)
-            o, k, v = attn_mod.attention_with_kv(
-                lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
-                positions=positions, impl=ec.attn_impl, compute_dtype=dt)
-            x = x + o
-            x = x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps), dt)
-            state["k"][i, :, :S] = k.to(dt)
-            state["v"][i, :, :S] = v.to(dt)
+            x = self._prefill_dense(_layer(params["stack"]["layers"], i), x,
+                                    positions, state, i, dt)
         h = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
         return unembed(params["embedding"], h, dt), state
 
-    def _prefill_ssm(self, params, x, dt):
+    def _prefill_dense(self, lp, x, positions, caches, i: int, dt):
+        """One dense block's prefill; its K/V go to row i of `caches`."""
         cfg = self.cfg
-        hs, convs = [], []
-        for i in range(cfg.n_layers):
-            lp = _layer(params["stack"]["layers"], i)
+        o, k, v = attn_mod.attention_with_kv(
+            lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
+            positions=positions, impl=self.ec.attn_impl, compute_dtype=dt)
+        x = x + o
+        S = x.shape[1]
+        caches["k"][i, :, :S] = k.to(dt)
+        caches["v"][i, :, :S] = v.to(dt)
+        return x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps), dt)
+
+    def _prefill_mamba(self, layers, x, dt):
+        """Prefill through a stack of Mamba blocks: (x, their states
+        stacked on a leading axis)."""
+        cfg = self.cfg
+        states = []
+        for i in range(_n_stacked(layers)):
+            lp = _layer(layers, i)
             y, st = mamba_mod.mamba_forward_with_state(
                 lp["mamba"], rmsnorm(lp["ln"], x, cfg.norm_eps), cfg, dt,
                 impl=self.ec.attn_impl)
             x = x + y
-            hs.append(st["h"])
-            convs.append(st["conv"])
+            states.append(st)
+        return x, _stack(states)
+
+    def _prefill_ssm(self, params, x, dt):
+        x, state = self._prefill_mamba(params["stack"]["layers"], x, dt)
+        h = rmsnorm(params["ln_f"], x[:, -1:], self.cfg.norm_eps)
+        return unembed(params["embedding"], h, dt), state
+
+    def _prefill_hybrid(self, params, x, dt, max_len: int):
+        cfg, stack = self.cfg, params["stack"]
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)[None, :]
+        G = _n_stacked(stack["layers"])
+        attn = attn_mod.init_kv_cache(cfg, B, max(max_len, S), G, dt,
+                                      x.device)
+        groups = []
+        for g in range(G):
+            x, st = self._prefill_mamba(_layer(stack["layers"], g), x, dt)
+            groups.append(st)
+            x = self._prefill_dense(stack["shared"], x, positions, attn, g,
+                                    dt)
+        state = {"mamba": _stack(groups)}
+        if "tail" in stack:
+            x, state["tail"] = self._prefill_mamba(stack["tail"], x, dt)
+        state["attn"] = attn
         h = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
-        state = {"h": torch.stack(hs), "conv": torch.stack(convs)}
         return unembed(params["embedding"], h, dt), state
 
     # -------------------------------------------------------- decode step
@@ -171,24 +239,53 @@ class Model:
         _require_ported(cfg)
         dt = torch_dtype(cfg.compute_dtype)
         x = embed(params["embedding"], token, dt)
-        for i in range(cfg.n_layers):
-            lp = _layer(params["stack"]["layers"], i)
-            if cfg.family == "ssm":
-                y, st = mamba_mod.mamba_step(
-                    lp["mamba"], rmsnorm(lp["ln"], x, cfg.norm_eps),
-                    {"h": state["h"][i], "conv": state["conv"][i]}, cfg, dt)
-                x = x + y
-                state["h"][i] = st["h"]
-                state["conv"][i] = st["conv"]
-                continue
-            o, _, _ = attn_mod.decode_attention(
-                lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
-                cache_k=state["k"][i], cache_v=state["v"][i], pos=pos,
-                compute_dtype=dt)
-            x = x + o
-            x = x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps), dt)
+        stack = params["stack"]
+        if cfg.family == "ssm":
+            x = self._decode_mamba(stack["layers"], x, state, dt)
+        elif cfg.family == "hybrid":
+            shared = stack["shared"]
+            for g in range(_n_stacked(stack["layers"])):
+                x = self._decode_mamba(_layer(stack["layers"], g), x,
+                                       _layer(state["mamba"], g), dt)
+                x = self._decode_dense(shared, x, state["attn"]["k"][g],
+                                       state["attn"]["v"][g], pos, dt)
+            if "tail" in stack:
+                x = self._decode_mamba(stack["tail"], x, state["tail"], dt)
+        else:
+            for i in range(cfg.n_layers):
+                x = self._decode_dense(_layer(stack["layers"], i), x,
+                                       state["k"][i], state["v"][i], pos, dt)
         h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return unembed(params["embedding"], h, dt), state
+
+    def _decode_dense(self, lp, x, cache_k, cache_v, pos, dt):
+        """One dense block's decode step; writes the caches in place."""
+        cfg = self.cfg
+        o, _, _ = attn_mod.decode_attention(
+            lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
+            cache_k=cache_k, cache_v=cache_v, pos=pos, compute_dtype=dt)
+        x = x + o
+        return x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps), dt)
+
+    def _decode_mamba(self, layers, x, states, dt):
+        """A stack of Mamba blocks' decode step; `states` ({h, conv} with
+        the stack's leading axis) are updated in place."""
+        cfg = self.cfg
+        for i in range(_n_stacked(layers)):
+            lp = _layer(layers, i)
+            y, st = mamba_mod.mamba_step(
+                lp["mamba"], rmsnorm(lp["ln"], x, cfg.norm_eps),
+                _layer(states, i), cfg, dt)
+            x = x + y
+            for k, v in st.items():
+                states[k][i] = v
+        return x
+
+
+def _stack(trees: list):
+    """Trees of one structure -> one tree, each leaf stacked on a new
+    leading axis."""
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
 
 
 def params_from_jax(tree, device=None):

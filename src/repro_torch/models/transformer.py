@@ -1,10 +1,16 @@
-"""Layer stacks of the dense and ssm (Mamba1) families.
+"""Layer stacks of the dense, ssm (Mamba1) and hybrid (zamba2-style)
+families.
 
 Layer parameters are stacked with a leading L axis under `layers`, as in
-the JAX package, so leaf paths and checkpoints match. Where the reference
-scans over that axis, the port loops over it in Python; `remat_policy`
-"full" recomputes each block in the backward pass through
-`torch.utils.checkpoint`.
+the JAX package, so leaf paths and checkpoints match. A hybrid stack is
+`{"shared": one dense block, "layers": Mamba2 blocks with lead (G,
+attn_every), "tail": lead (n_layers % attn_every,)}`: each of the G groups
+runs its Mamba2 layers, then the weight-shared dense block; the tail's
+layers come last. (The reference simplifies Zamba2: no concatenated
+embedding input, no per-application LoRA; the port copies the reference.)
+Where the reference scans over a stacked axis, the port loops over it in
+Python; `remat_policy` "full" recomputes each block in the backward pass
+through `torch.utils.checkpoint`, a hybrid group as one block.
 """
 from __future__ import annotations
 
@@ -25,8 +31,10 @@ Params = Any
 @dataclasses.dataclass(frozen=True)
 class ExecConfig:
     """Execution knobs. `attn_impl="pallas"` runs the port's kernels:
-    prefill attention through F1 and, in an ssm model, the prefill scan
-    through S1 (the reference's ssm path ignores the knob; ROADMAP C5)."""
+    prefill attention through F1 (a hybrid model's shared block too) and,
+    in an ssm (Mamba1) model, the prefill scan through S1 (the reference's
+    ssm path ignores the knob; ROADMAP C5). Mamba2 layers run the chunked
+    SSD under every value, as in the reference."""
     attn_impl: str = "chunked"        # naive | chunked | pallas (F1, S1)
     remat_policy: str = "full"        # none | full
     xent_chunks: int = 4
@@ -61,7 +69,7 @@ def mamba_block(p, x, cfg: ModelConfig, dt):
         p["mamba"], rmsnorm(p["ln"], x, cfg.norm_eps), cfg, dt)
 
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _require_ported(cfg: ModelConfig):
@@ -74,6 +82,14 @@ def _require_ported(cfg: ModelConfig):
 def stack_init(gen, cfg: ModelConfig, dtype) -> Params:
     """Stacked layer params (leading L axis) of the decoder stack."""
     _require_ported(cfg)
+    if cfg.family == "hybrid":
+        G, tail = divmod(cfg.n_layers, cfg.attn_every)
+        p = {"shared": dense_block_init(gen, cfg, dtype),
+             "layers": mamba_block_init(gen, cfg, dtype,
+                                        lead=(G, cfg.attn_every))}
+        if tail:
+            p["tail"] = mamba_block_init(gen, cfg, dtype, lead=(tail,))
+        return p
     init = mamba_block_init if cfg.family == "ssm" else dense_block_init
     return {"layers": init(gen, cfg, dtype, lead=(cfg.n_layers,))}
 
@@ -84,6 +100,13 @@ def _layer(layers, i: int):
     return layers[i]
 
 
+def _n_stacked(layers) -> int:
+    """The length of the leading (stacked) axis of a tree of layers."""
+    while isinstance(layers, dict):
+        layers = next(iter(layers.values()))
+    return layers.shape[0]
+
+
 def stack_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   ec: ExecConfig, positions, dt):
     """x: (B,S,D) -> ((B,S,D), aux_loss)."""
@@ -91,15 +114,30 @@ def stack_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if ec.remat_policy not in ("none", "full"):
         raise ValueError(ec.remat_policy)
 
-    def body(h, lp):
-        if cfg.family == "ssm":
-            return mamba_block(lp, h, cfg, dt)
-        return dense_block(lp, h, cfg, ec, positions, dt)
+    def run(body, x, layers):
+        for i in range(_n_stacked(layers)):
+            lp = _layer(layers, i)
+            if ec.remat_policy == "full" and torch.is_grad_enabled():
+                x = checkpoint(body, x, lp, use_reentrant=False)
+            else:
+                x = body(x, lp)
+        return x
 
-    for i in range(cfg.n_layers):
-        lp = _layer(p["layers"], i)
-        if ec.remat_policy == "full" and torch.is_grad_enabled():
-            x = checkpoint(body, x, lp, use_reentrant=False)
-        else:
-            x = body(x, lp)
+    def mamba_body(h, lp):
+        return mamba_block(lp, h, cfg, dt)
+
+    if cfg.family == "hybrid":
+        def group_body(h, gp):
+            for i in range(cfg.attn_every):
+                h = mamba_block(_layer(gp, i), h, cfg, dt)
+            return dense_block(p["shared"], h, cfg, ec, positions, dt)
+
+        x = run(group_body, x, p["layers"])
+        if "tail" in p:
+            x = run(mamba_body, x, p["tail"])
+    elif cfg.family == "ssm":
+        x = run(mamba_body, x, p["layers"])
+    else:
+        x = run(lambda h, lp: dense_block(lp, h, cfg, ec, positions, dt), x,
+                p["layers"])
     return x, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -34,10 +34,12 @@ rank loss + recovery under load.
 This is the PyTorch port of the JAX package's engine, with two
 differences. The decode step updates the KV caches in place (the
 reference donates them to the same end). Admission writes a prefilled
-lane into the dense state's batch axis, axis 1 of `(L, B, S, Hkv, hd)`;
-the reference finds that axis by its size, which picks the layer axis
-when n_layers == n_slots == prefill_batch (ROADMAP C2). `mesh`/`rules`
-(the sharded engine) are not ported yet.
+lane along each state leaf's batch axis as the model names it
+(`Model.decode_state_batch_axes`: axis 1 of the dense `(L, B, S, Hkv,
+hd)`, axis 2 of a hybrid's Mamba2 `(G, E, B, ...)`); the reference finds
+that axis by its size, which picks a layer or group axis when one equals
+n_slots and prefill_batch (ROADMAP C2). `mesh`/`rules` (the sharded
+engine) are not ported yet.
 """
 from __future__ import annotations
 
@@ -52,10 +54,6 @@ from repro_torch.device import HostCopy, host_leaf, to_device
 from repro_torch.models.model import Model
 from repro_torch.scenarios import hooks
 from repro_torch.tree import tree_leaves, tree_map
-
-#: the batch axis of every leaf of the dense decode state (L, B, S, Hkv, hd)
-BATCH_AXIS = 1
-
 
 @dataclasses.dataclass
 class Request:
@@ -131,6 +129,8 @@ class ServeEngine:
         self.device = tree_leaves(params)[0].device
         self.state = model.init_decode_state(n_slots, max_len,
                                              device=self.device)
+        # the batch axis of each state leaf, in a tree shaped like it
+        self.batch_axes = model.decode_state_batch_axes()
         self.slots: list[Optional[Request]] = [None] * n_slots
         self.pos = np.zeros(n_slots, np.int32)       # next position per slot
         self.queue: list[Request] = []
@@ -185,15 +185,15 @@ class ServeEngine:
         dst_idx = torch.tensor(slot_idx, device=self.device)
         src_idx = torch.tensor(lanes, device=self.device)
 
-        def sp(dst, src):
+        def sp(dst, src, axis):
             src = src.to(self.device)
             if dst.dim() != src.dim():
                 raise ValueError(f"rank mismatch {tuple(dst.shape)} vs "
                                  f"{tuple(src.shape)}")
-            lanes_ = src.index_select(BATCH_AXIS, src_idx).to(dst.dtype)
-            dst.index_copy_(BATCH_AXIS, dst_idx, lanes_)
+            lanes_ = src.index_select(axis, src_idx).to(dst.dtype)
+            dst.index_copy_(axis, dst_idx, lanes_)
 
-        tree_map(sp, self.state, src_state)
+        tree_map(sp, self.state, src_state, self.batch_axes)
 
     def _cache_get(self, key: tuple):
         hit = self._prefill_cache.get(key)
@@ -214,7 +214,8 @@ class ServeEngine:
 
     def _lane_state(self, src_state, lane: int):
         """One lane of a batch-G prefill state, lane axis kept (size 1)."""
-        return tree_map(lambda a: a.narrow(BATCH_AXIS, lane, 1), src_state)
+        return tree_map(lambda a, axis: a.narrow(axis, lane, 1), src_state,
+                        self.batch_axes)
 
     def _commit_admission(self, slot: int, req: Request, nxt: int):
         req.out.append(int(nxt))

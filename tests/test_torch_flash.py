@@ -53,6 +53,7 @@ def _f32(x):
     (2, 128, 256, 4, 1, 128),       # MQA, longer KV (decode-suffix case)
     (1, 128, 128, 4, 4, 128),
     (1, 512, 512, 2, 2, 64),
+    (1, 128, 128, 4, 4, 112),       # zamba2-7b's shared block's head dim
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -137,6 +138,7 @@ def _emulate_tensor_core_f1(q, k, v, causal):
     (1, 512, 512, 4, 2, 128),       # qwen2-7b's hd, GQA, S 512
     (1, 256, 384, 4, 1, 128),       # a query suffix, Sq < Sk
     (1, 512, 512, 2, 2, 64),
+    (1, 256, 256, 4, 4, 112),       # hd 112 on the hd-128 tiles
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_tensor_core_numerics_match_pallas_kernel(B, Sq, Sk, H, Hkv, hd,
@@ -158,6 +160,7 @@ def test_tensor_core_numerics_match_pallas_kernel(B, Sq, Sk, H, Hkv, hd,
     (1, 77, 77, 4, 2, 128),         # no tile divides S
     (1, 200, 100, 4, 4, 64),        # Sq > Sk: rows before every key
     (2, 33, 300, 4, 1, 16),         # Sq < Sk over three key tiles, hd 16
+    (1, 77, 77, 4, 4, 112),         # zamba2-7b's odd prompt, hd 112
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_tensor_core_numerics_match_plain_at_odd_lengths(B, Sq, Sk, H, Hkv,
@@ -195,6 +198,7 @@ def _offset(strides, b, s, h):
     (1, 3, 10, 4, 1, 16),           # Sq < Sk, MQA
     (3, 10, 3, 2, 2, 128),          # Sq > Sk
     (2, 1, 1, 4, 4, 64),            # S 1
+    (2, 5, 7, 4, 4, 112),           # hd 112
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_launch_args_address_every_element(B, Sq, Sk, H, Hkv, hd, dtype):
@@ -240,6 +244,23 @@ def test_launch_args_take_only_16_byte_strides():
         assert not ops.in_place((q, bad, q, q), ops.launch_args(q, bad, q, q))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_launch_args_at_head_dim_112_take_zamba2_in_place(dtype):
+    """zamba2-7b's shared block (32 heads on 32, hd 112) in the model
+    layout: every stride is a whole 16-byte step (a bf16 row is 224 bytes,
+    a sequence step 7168), so F1 reads it in place, and 112 is a head dim
+    F1 is built for."""
+    dt = getattr(torch, dtype)
+    q = torch.zeros((4, 77, 32, 112), dtype=dt)
+    args = ops.launch_args(q, q, q, q)
+    assert args[6] == 112 and 112 in ops.HEAD_DIMS
+    size = q.element_size()
+    assert [st * size for st in args[7:10]] == [77 * 32 * 112 * size,
+                                                32 * 112 * size, 112 * size]
+    assert args[8] * 2 == 7168 and args[9] * 2 == 224
+    assert ops.in_place((q, q, q, q), args)
+
+
 def test_backward_raises():
     """The reference defines no VJP for A4: the port's op must not let
     attention silently drop out of a gradient."""
@@ -270,7 +291,8 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd", [
     (4, 512, 512, 12, 12, 64), (2, 128, 640, 28, 4, 128),
-    (1, 77, 77, 4, 2, 16), (1, 200, 100, 4, 4, 64)])
+    (1, 77, 77, 4, 2, 16), (1, 200, 100, 4, 4, 64),
+    (4, 512, 512, 32, 32, 112), (2, 77, 200, 8, 2, 112)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_f1_matches_plain_version(cuda, B, Sq, Sk, H, Hkv, hd, causal,
@@ -291,7 +313,8 @@ def test_f1_matches_plain_version(cuda, B, Sq, Sk, H, Hkv, hd, causal,
     (1, 1, 1, 2, 2, 64), (4, 4, 4, 12, 12, 64), (4, 6, 6, 12, 12, 64),
     (4, 77, 77, 28, 4, 128), (4, 512, 512, 28, 4, 128),
     (2, 512, 512, 4, 4, 16), (2, 33, 300, 4, 1, 16), (1, 128, 640, 28, 4, 128),
-    (1, 200, 100, 4, 4, 64), (2, 300, 129, 4, 2, 128)])
+    (1, 200, 100, 4, 4, 64), (2, 300, 129, 4, 2, 128),
+    (4, 77, 77, 32, 32, 112), (2, 300, 129, 4, 2, 112)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_f1_tensor_cores_match_plain_version(cuda, B, Sq, Sk, H, Hkv, hd,
                                              causal):
@@ -347,3 +370,17 @@ def test_f1_rows_do_not_depend_on_the_batch(cuda):
         alone = ops.flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
                                     causal=True)
         assert torch.equal(whole[b:b + 1], alone)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [32, 96, 120])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_f1_refuses_a_head_dim_it_is_not_built_for(cuda, hd, dtype):
+    """No fallback: a CUDA tensor at a head dim F1 is not built for
+    raises, and nothing launches."""
+    _, (q, k, v) = _inputs(6, 1, 8, 8, 2, 2, hd, dtype)
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    n = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(q, k, v, causal=True)
+    assert ops.LAUNCHES["flash_attention"] == n

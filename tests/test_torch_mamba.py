@@ -141,9 +141,20 @@ def test_chunk_scan_stays_finite_where_decay_underflows():
 
 
 def test_mamba2_is_not_ported():
-    _, cfg = _cfgs(ssm_version=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        mamba.mamba_init(torch.Generator().manual_seed(0), cfg, "float32")
+    """Earlier slices of the port refused Mamba2 (`ssm_version=2`) with a
+    NotImplementedError; it is ported now, so `mamba_init` draws the
+    reference's Mamba2 tree: the same keys, each leaf of the same shape,
+    and none of Mamba1's."""
+    rcfg, cfg = _cfgs(ssm_version=2)
+    want = jax.device_get(ref_mamba.mamba_init(jax.random.PRNGKey(0), rcfg,
+                                               jnp.float32))
+    got = mamba.mamba_init(torch.Generator().manual_seed(0), cfg, "float32")
+    assert sorted(got) == sorted(want)
+    assert "in_bc" in got and "x_proj" not in got
+    assert {k: tuple(v.shape) for k, v in got["norm"].items()} == \
+        {k: np.shape(v) for k, v in want["norm"].items()}
+    assert {k: tuple(v.shape) for k, v in got.items() if k != "norm"} == \
+        {k: np.shape(v) for k, v in want.items() if k != "norm"}
 
 
 # ------------------------------------------------------------ the model
