@@ -25,13 +25,15 @@ Phases (any failure exits non-zero):
   3. [flash] hold F1 against its plain version at the prefill shapes of
      the serving paths (qwen2-7b at S 512, 384 and the odd 77; paper-demo
      at S 4 and 6; zamba2-7b's shared block at S 512, 384 and 77, head
-     dim 112) and at two extra cases (a query suffix Sq < Sk, and
+     dim 112; olmoe-1b-7b at S 512, 384 and 77, 16 heads = 16 KV heads of
+     128) and at two extra cases (a query suffix Sq < Sk, and
      paper-demo at S 512) in bf16 (the tensor-core kernel) and fp32 (the
      FMA kernel), causal and not, to 2e-2 (bf16) and 2e-5 (fp32); check
      that a row's bits do not depend on the batch and that the model
      layout, read by strides, gives the flattened layout's bits; time F1,
      its plain version and `scaled_dot_product_attention` (event, host
-     issue and device time), qwen2-7b's and zamba2-7b's S 512 among them;
+     issue and device time), qwen2-7b's, zamba2-7b's and olmoe-1b-7b's
+     S 512 among them;
   3b. [scan] hold S1 (y and h_final) against its plain version to 1e-4
      at the prefill shapes of the falcon-mamba-7b serving path (B 4,
      S 512, 384 and 77, d_inner 8192, ds 16), at odd shapes (S 1, S 3,
@@ -101,15 +103,27 @@ Phases (any failure exits non-zero):
      snapshot/restore must give every leaf of the nested state bit for
      bit, and `pallas` is held to `chunked` in float32 compute, the served
      bf16 difference printed beside it;
+  8c. [serve-moe] the same at the full published width and depth of
+     olmoe-1b-7b (the moe family: 16 layers of MHA attention, 16 heads of
+     128, and 64 experts of d_ff 1024, top-8, routed in groups of 256
+     tokens with capacity factor 1.25; 6,816,073,728 float32 parameters,
+     drawn once zamba2-7b's are freed): F1 must launch exactly 16 layers x
+     3 prefill calls = 48 times on the serve CLI's run; the experts are
+     torch products (the reference computes them outside Pallas); prints,
+     for each prefill call as the engine makes it, the expert assignments
+     capacity dropped and the tokens whose 8th and 9th router
+     probabilities tie; one prefill call made twice must give the same
+     logits and KV bit for bit; `pallas` is held to `chunked` in float32
+     compute, the served bf16 difference printed beside it;
   9. the kernel report. Launches are counted per path: the counts are
      set to 0 just before each path is driven and read just after it.
      K2 must launch on the full-save runs (the shrink and gray runs
      included), K1 on the delta-cadence runs and in every runtime run,
      K3 (which training never reaches: AdamW dirties every tile) on the
-     sparse-dirt saves, F1 on both dense serving paths and the zamba2-7b
-     one and S1 on the falcon-mamba-7b one; every shape, dtype and mask F1
-     was given must be one that phase 3 checked, and every shape S1 was
-     given one that phase 3b checked.
+     sparse-dirt saves, F1 on both dense serving paths, the zamba2-7b and
+     the olmoe-1b-7b ones and S1 on the falcon-mamba-7b one; every shape,
+     dtype and mask F1 was given must be one that phase 3 checked, and
+     every shape S1 was given one that phase 3b checked.
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -158,13 +172,18 @@ FLASH_SHAPES = {
     "zamba2-7b prefill S 512": (4, 512, 512, 32, 32, 112),
     "zamba2-7b prefill S 384": (4, 384, 384, 32, 32, 112),
     "zamba2-7b prefill odd S 77": (4, 77, 77, 32, 32, 112),
+    "olmoe-1b-7b prefill S 512": (4, 512, 512, 16, 16, 128),
+    "olmoe-1b-7b prefill S 384": (4, 384, 384, 16, 16, 128),
+    "olmoe-1b-7b prefill odd S 77": (4, 77, 77, 16, 16, 128),
     "extra: qwen2-7b suffix Sq<Sk": (4, 128, 640, 28, 4, 128),
     "extra: paper-demo S 512": (4, 512, 512, 12, 12, 64),
 }
 # the shape that stands for F1 on the kernels line, and F1 at head dim 112
-# (zamba2-7b's shared block), timed beside it
+# (zamba2-7b's shared block) and at MHA with head dim 128 (olmoe-1b-7b),
+# timed beside it
 FLASH_MAIN = "qwen2-7b prefill S 512"
 FLASH_HD112 = "zamba2-7b prefill S 512"
+FLASH_MHA = "olmoe-1b-7b prefill S 512"
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # the serve CLI's request set: two prefill groups (512, 384) and a 77
 SERVE_PROMPTS = (512, 512, 512, 512, 384, 384, 384, 77)
@@ -212,6 +231,13 @@ SSM_LOGIT_TOL_F32 = 1e-3
 # rounding of the activations differs once the attention sums do, and a
 # deep random stack amplifies that as falcon-mamba-7b's did
 HYBRID_LOGIT_TOL_F32 = 1e-3
+# pallas vs chunked prefill logits of olmoe-1b-7b in float32 compute,
+# where only the 16 attentions differ (F1's FMA kernel against the chunked
+# torch attention): within this share of the largest logit. The router
+# then sees logits that differ in the last bits, which can move a token's
+# k-th expert only where two probabilities are within that much of a tie.
+# The bf16 (served) difference is printed beside it, with no bound
+MOE_LOGIT_TOL_F32 = 1e-3
 # the random models' embedding table is drawn at scale 1.0 and tied to the
 # unembedding, so greedy decode repeats the last prompt token whatever the
 # attention computes; the API checks scale it so transcripts depend on it
@@ -482,7 +508,7 @@ def phase_flash(torch) -> tuple[dict, set]:
                     fail(f"F1 disagrees with its plain version: {name} "
                          f"{dname} causal={causal}")
 
-    for name in (FLASH_MAIN, FLASH_HD112):
+    for name in (FLASH_MAIN, FLASH_HD112, FLASH_MHA):
         q, k, v = inputs(FLASH_SHAPES[name], torch.bfloat16)
         whole = fa.flash_attention_kernel(q, k, v, causal=True)
         for b in range(q.shape[0]):
@@ -509,8 +535,8 @@ def phase_flash(torch) -> tuple[dict, set]:
           "layout's bits (qwen2-7b S 512, bf16 and fp32, causal and not)")
 
     rows = {}
-    for name in (FLASH_MAIN, FLASH_HD112, "paper-demo prefill S 6",
-                 "extra: paper-demo S 512"):
+    for name in (FLASH_MAIN, FLASH_HD112, FLASH_MHA,
+                 "paper-demo prefill S 6", "extra: paper-demo S 512"):
         shape = FLASH_SHAPES[name]
         q, k, v = inputs(shape, torch.bfloat16)
         kern, bhsd, sdpa = flash_calls(torch, fa, q, k, v, shape[3])
@@ -542,9 +568,11 @@ def phase_flash(torch) -> tuple[dict, set]:
                             lambda sdpa=sdpa: nondeterministic(torch, sdpa)))
     checked = {(FLASH_SHAPES[name], dname, causal)
                for name, dname, causal in errs}
-    # the kernels line carries the hd-112 row beside the main one (its
-    # device times are filled in place by phase_device_times)
+    # the kernels line carries the hd-112 and MHA hd-128 rows beside the
+    # main one (their device times are filled in place by
+    # phase_device_times)
     rows[FLASH_MAIN]["hd112"] = rows[FLASH_HD112]
+    rows[FLASH_MAIN]["mha_hd128"] = rows[FLASH_MHA]
     return rows[FLASH_MAIN], checked
 
 
@@ -753,8 +781,60 @@ def print_profile(torch, tag: str, what: str, unit: str, n: int, fn) -> None:
               f"x{e.count // n:<5d} {e.key[:90]}")
 
 
+def moe_routing(torch, model, params, prompts, tag: str) -> None:
+    """The MoE model's prefill calls as the engine makes them (each group
+    of equal-length prompts lane-padded to 4 with copies of its first):
+    print, summed over the layers, the expert assignments that capacity
+    dropped and the tokens whose k-th and (k+1)-th router probabilities
+    tie exactly. Then the S 512 x 4 call, made twice on the same input,
+    must give the same logits and KV caches bit for bit (the routing's
+    sort, cumsum and scatter are deterministic on the card)."""
+    from repro_torch.models import moe
+    inner, k = moe._top_k_routing, model.cfg.experts_per_token
+    seen = []
+
+    def record(logits, n_top, capacity):
+        out = inner(logits, n_top, capacity)
+        top = torch.sort(torch.softmax(logits.float(), -1), -1,
+                         descending=True).values
+        seen.append((tuple(logits.shape), capacity,
+                     logits.shape[0] * logits.shape[1] * n_top,
+                     int(out[0].sum()),
+                     int((top[..., n_top - 1] == top[..., n_top]).sum())))
+        return out
+
+    for rows in (prompts[:4], prompts[4:7], prompts[7:]):
+        toks = torch.tensor(rows + rows[:1] * (4 - len(rows)), device="cuda")
+        seen.clear()
+        moe._top_k_routing = record
+        try:
+            with torch.no_grad():
+                model.prefill(params, {"tokens": toks}, max_len=1024)
+        finally:
+            moe._top_k_routing = inner
+        (G, g, _), C = seen[0][0], seen[0][1]
+        total = sum(s[2] for s in seen)
+        dropped = total - sum(s[3] for s in seen)
+        ties = sum(s[4] for s in seen)
+        print(f"[{tag}] routing of the prefill call S {len(rows[0])} x "
+              f"{len(rows)} (lane-padded to 4): {G} groups of {g} tokens, "
+              f"capacity {C}; over {len(seen)} layers {dropped} of {total} "
+              f"expert assignments dropped ({dropped / total:.4%}); "
+              f"{ties} token-layers whose {k}th and {k + 1}th router "
+              f"probabilities tie")
+    toks = torch.tensor(prompts[:4], device="cuda")
+    with torch.no_grad():
+        a = model.prefill(params, {"tokens": toks}, max_len=1024)
+        b = model.prefill(params, {"tokens": toks}, max_len=1024)
+    if not (torch.equal(a[0], b[0]) and all(
+            torch.equal(a[1][n], b[1][n]) for n in ("k", "v"))):
+        fail("two prefill calls on the same input gave different bits")
+    print(f"[{tag}] the S 512 x 4 prefill call made twice: logits and both "
+          f"KV caches {tuple(a[1]['k'].shape)} bit-identical")
+
+
 def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
-    """Phases 6, 8 and 8b: `arch` at full width and depth, served with
+    """Phases 6, 8, 8b and 8c: `arch` at full width and depth, served with
     `--attn-impl pallas`, where `kernel` must launch once per layer (per
     group, in a hybrid model) and prefill call. Returns the launches of
     the serve CLI's run; `recording` records the kernel's cases on it."""
@@ -780,6 +860,14 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
               f"{cfg.ssm_chunk}; shared block {cfg.n_heads}/"
               f"{cfg.n_kv_heads} heads, hd {cfg.head_dim}, d_ff {cfg.d_ff}; "
               f"vocab {cfg.vocab_size}; depth not cut")
+    elif cfg.family == "moe":
+        print(f"[{tag}] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}, "
+              f"{cfg.n_experts} experts of d_ff {cfg.d_ff}, top-"
+              f"{cfg.experts_per_token}, capacity factor "
+              f"{cfg.capacity_factor}, routing groups of "
+              f"{ExecConfig().moe_group} tokens; vocab {cfg.vocab_size}; "
+              f"depth not cut")
     else:
         print(f"[{tag}] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
               f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}, "
@@ -887,18 +975,21 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
 
     chunked = Model(cfg, ExecConfig(attn_impl="chunked"))
     ssm = cfg.family == "ssm"
-    in_f32 = cfg.family in ("ssm", "hybrid")
+    in_f32 = cfg.family in ("ssm", "hybrid", "moe")
     if in_f32:
         # a random deep Mamba stack in bf16 amplifies the kernels' other
         # order of summation far past any tight tolerance (for Mamba1 so
         # does the chunked route against itself at another chunk length,
-        # printed below): the kernel is held to the chunked route in
-        # float32 compute, where nothing but that order differs (for the
-        # hybrid that also runs F1's float32 kernel at hd 112)
+        # printed below), and so does a bf16 MoE router, whose exact and
+        # near ties send tokens to other experts once an attention sum
+        # differs: the kernel is held to the chunked route in float32
+        # compute, where nothing but that order differs (for the hybrid
+        # and the moe model that runs F1's float32 kernel)
         f32 = cfg.replace(compute_dtype="float32")
         held = (Model(f32, ExecConfig(attn_impl="pallas")),
                 Model(f32, ExecConfig(attn_impl="chunked")))
-        tol = SSM_LOGIT_TOL_F32 if ssm else HYBRID_LOGIT_TOL_F32
+        tol = {"ssm": SSM_LOGIT_TOL_F32, "hybrid": HYBRID_LOGIT_TOL_F32,
+               "moe": MOE_LOGIT_TOL_F32}[cfg.family]
         held_dtype = "float32"
     else:
         held, tol, held_dtype = (model, chunked), LOGIT_TOL, "bfloat16"
@@ -915,8 +1006,14 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
             served += (f", logits max diff {rel:.3g} of the largest, first "
                        f"tokens equal on {same} of {len(rows)} lanes; held "
                        f"in {held_dtype}")
+            lc16 = lc
             (lp, p_ms), (lc, c_ms) = (prefill(m, toks) for m in held)
             served += f" (wall {p_ms:.1f} ms pallas, {c_ms:.1f} ms chunked)"
+            # a yardstick for the served difference: the chunked route in
+            # the served dtype against itself in float32
+            rel = float((lc16 - lc).abs().max()) / float(lc.abs().max())
+            served += (f"; yardstick: chunked {cfg.compute_dtype} vs "
+                       f"chunked float32 max diff {rel:.3g} of the largest")
         scale = float(lc.abs().max())
         rel = float((lp - lc).abs().max()) / scale
         tp, tc = lp.argmax(-1), lc.argmax(-1)
@@ -931,6 +1028,8 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
               f"{len(rows)} lanes")
         if rel > tol:
             fail(f"pallas and chunked prefill logits differ at S {n}")
+    if cfg.family == "moe":
+        moe_routing(torch, model, params, prompts, tag)
     toks = torch.tensor(prompts[:4], device="cuda")
     with torch.no_grad():
         print_profile(torch, tag, f"a prefill call (S 512 x 4, pallas, "
@@ -1506,6 +1605,9 @@ def main() -> int:
     by_path["serve-zamba2-7b"] = phase_serve(
         torch, "zamba2-7b", "flash_attention",
         recording_flash_shapes(flash_seen), "serve-hybrid")
+    by_path["serve-olmoe-1b-7b"] = phase_serve(
+        torch, "olmoe-1b-7b", "flash_attention",
+        recording_flash_shapes(flash_seen), "serve-moe")
     unchecked = sorted(flash_seen - flash_checked)
     if unchecked:
         fail(f"the serving paths gave F1 cases that [flash] did not hold "
@@ -1525,7 +1627,7 @@ def main() -> int:
                 "gather_tiles": ["sparse-dirt"],
                 "flash_attention": ["serve-qwen2-7b",
                                     "serve-cluster-paper-demo",
-                                    "serve-zamba2-7b"],
+                                    "serve-zamba2-7b", "serve-olmoe-1b-7b"],
                 "selective_scan": ["serve-falcon-mamba-7b"]}
     for name, paths in required.items():
         for path in paths:

@@ -8,8 +8,11 @@ The flags and JSON output of `repro.launch.serve`, plus `--device`
 (default `cuda`; `cpu` only when asked) and `--attn-impl` (the execution
 knob `ExecConfig.attn_impl`). `pallas` runs the port's kernels on
 prefill: attention through the CUDA kernel F1 in a dense model (qwen2-7b,
-paper-demo), every layer's selective scan through the CUDA kernel S1 in
-an ssm model (`--arch falcon-mamba-7b`, Mamba1), and in the hybrid
+paper-demo) and a moe model (`--arch olmoe-1b-7b`: 64 experts, top-8,
+routed in groups of `ExecConfig.moe_group` tokens with the reference's
+capacity; the experts are torch products, as the reference computes them
+outside Pallas), every layer's selective scan through the CUDA kernel S1
+in an ssm model (`--arch falcon-mamba-7b`, Mamba1), and in the hybrid
 `--arch zamba2-7b` the shared attention block through F1 (head dim 112,
 once per group of 6 layers) while its Mamba2 layers run the chunked SSD,
 as under every `--attn-impl` (S % min(ssm_chunk, S) == 0; ssm_chunk is 128

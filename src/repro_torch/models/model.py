@@ -1,6 +1,6 @@
-"""Model API of the dense, ssm (Mamba1) and hybrid (Mamba2 + a shared
-attention block, zamba2-style) families: config -> init / forward /
-loss_fn / prefill / decode_step.
+"""Model API of the dense, moe (top-k routed experts with capacity), ssm
+(Mamba1) and hybrid (Mamba2 + a shared attention block, zamba2-style)
+families: config -> init / forward / loss_fn / prefill / decode_step.
 
 The parameter tree has the JAX package's structure and leaf paths
 (`embedding/table`, `stack/layers/...` with a leading L axis, a hybrid's
@@ -19,6 +19,7 @@ from ..device import resolve, to_device
 from ..tree import tree_map
 from . import attention as attn_mod
 from . import mamba as mamba_mod
+from . import moe as moe_mod
 from .config import ModelConfig
 from .layers import (embed, embedding_init, mlp, rmsnorm, rmsnorm_init,
                      torch_dtype, unembed)
@@ -103,8 +104,8 @@ class Model:
 
     def init_decode_state(self, batch: int, max_len: int, *, device=None):
         """The zeroed decode state on `device` (`cuda` unless named):
-        dense, KV caches {"k", "v"} of shape (L, batch, max_len, Hkv, hd)
-        in the compute dtype; ssm, {"h": (L, batch, di, ds), "conv":
+        dense and moe, KV caches {"k", "v"} of shape (L, batch, max_len,
+        Hkv, hd) in the compute dtype; ssm, {"h": (L, batch, di, ds), "conv":
         (L, batch, K-1, di)} in float32, whatever max_len is; hybrid,
         {"mamba": {"h": (G, E, batch, nh, hp, ds), "conv": (G, E, batch,
         K-1, di+2ds)} in float32, "tail": the same leaves with lead (T,)
@@ -175,7 +176,8 @@ class Model:
         return unembed(params["embedding"], h, dt), state
 
     def _prefill_dense(self, lp, x, positions, caches, i: int, dt):
-        """One dense block's prefill; its K/V go to row i of `caches`."""
+        """One dense (or moe) block's prefill; its K/V go to row i of
+        `caches`."""
         cfg = self.cfg
         o, k, v = attn_mod.attention_with_kv(
             lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
@@ -184,7 +186,16 @@ class Model:
         S = x.shape[1]
         caches["k"][i, :, :S] = k.to(dt)
         caches["v"][i, :, :S] = v.to(dt)
-        return x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps), dt)
+        return x + self._mlp(lp, rmsnorm(lp["ln2"], x, cfg.norm_eps), dt)
+
+    def _mlp(self, lp, x, dt):
+        """A block's MLP: the routed experts where the block has them (their
+        load-balancing loss dropped, as the reference's prefill and decode
+        drop it), else the dense MLP."""
+        if "moe" in lp:
+            return moe_mod.moe_mlp(lp["moe"], x, self.cfg, dt,
+                                   group_size=self.ec.moe_group)[0]
+        return mlp(lp["mlp"], x, dt)
 
     def _prefill_mamba(self, layers, x, dt):
         """Prefill through a stack of Mamba blocks: (x, their states
@@ -259,13 +270,14 @@ class Model:
         return unembed(params["embedding"], h, dt), state
 
     def _decode_dense(self, lp, x, cache_k, cache_v, pos, dt):
-        """One dense block's decode step; writes the caches in place."""
+        """One dense (or moe) block's decode step; writes the caches in
+        place."""
         cfg = self.cfg
         o, _, _ = attn_mod.decode_attention(
             lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
             cache_k=cache_k, cache_v=cache_v, pos=pos, compute_dtype=dt)
         x = x + o
-        return x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps), dt)
+        return x + self._mlp(lp, rmsnorm(lp["ln2"], x, cfg.norm_eps), dt)
 
     def _decode_mamba(self, layers, x, states, dt):
         """A stack of Mamba blocks' decode step; `states` ({h, conv} with

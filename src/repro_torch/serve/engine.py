@@ -11,6 +11,9 @@ admitted at different times) decodes exactly like `n_slots` independent
 single-sequence streams. A slot's output therefore never depends on what
 the other slots are doing, which is also what makes recovery replay
 bit-identical regardless of how admission interleaves after a restore.
+A MoE model is the exception, as in the reference: its routing groups
+are cut from every lane of a call, and lanes in one group share each
+expert's capacity (ROADMAP C7).
 
 Admission is batched: queued requests with equal prompt length are
 prefilled together, lane-padded to a *fixed* `prefill_batch` width so the
@@ -251,7 +254,9 @@ class ServeEngine:
                     break
                 take.append(r)
             # lane-pad to the fixed width: dummy lanes replicate lane 0,
-            # and per-lane data independence keeps real lanes bit-exact
+            # and per-lane data independence keeps real lanes bit-exact,
+            # except where a MoE routing group spans lanes and they share
+            # its capacity (ROADMAP C7; the reference behaves alike)
             toks = np.tile(np.asarray(take[0].prompt, np.int64),
                            (self.prefill_batch, 1))
             for i, r in enumerate(take):
