@@ -26,14 +26,26 @@ Phases (any failure exits non-zero):
      the serving paths (qwen2-7b at S 512, 384 and the odd 77; paper-demo
      at S 4 and 6; zamba2-7b's shared block at S 512, 384 and 77, head
      dim 112; olmoe-1b-7b at S 512, 384 and 77, 16 heads = 16 KV heads of
-     128) and at two extra cases (a query suffix Sq < Sk, and
-     paper-demo at S 512) in bf16 (the tensor-core kernel) and fp32 (the
-     FMA kernel), causal and not, to 2e-2 (bf16) and 2e-5 (fp32); check
-     that a row's bits do not depend on the batch and that the model
-     layout, read by strides, gives the flattened layout's bits; time F1,
-     its plain version and `scaled_dot_product_attention` (event, host
-     issue and device time), qwen2-7b's, zamba2-7b's and olmoe-1b-7b's
-     S 512 among them;
+     128; seamless-m4t-medium's encoder at S_enc 1024, its decoder's
+     self-attention at S 512 and 77 and its cross-attention of S 512 and
+     77 queries over the 1024 encoder rows, 16 heads of 64;
+     llava-next-34b at S 3072, GQA 56/8 of 128) and at two extra cases (a
+     query suffix Sq < Sk, and paper-demo at S 512) in bf16 (the
+     tensor-core kernel) and fp32 (the FMA kernel), each shape with the
+     mask its path gives it (`FLASH_MASKS`: the encoder and the
+     cross-attention non-causal, the rest causal, qwen2-7b's S 512 both),
+     bf16 to min(2e-2, 2e-2 x max|want|) in all and, row by row (one
+     query of one head), to 2e-2 of the row's own max|want|
+     (`max_row_rel_err`), so that rows spread over many keys (1024
+     non-causal keys, the late rows of a causal S 3072), whose outputs are
+     far below 1, are each held in their own scale; fp32 to 2e-5; each
+     bound printed beside its reading; check that a row's bits do not
+     depend on the batch and that the model layout, read by strides,
+     gives the flattened layout's bits; time F1, its plain version and
+     `scaled_dot_product_attention` (event, host issue and device time)
+     with the shape's mask, at qwen2-7b's, zamba2-7b's and olmoe-1b-7b's
+     S 512, seamless-m4t-medium's encoder and S 512 cross-attention and
+     llava-next-34b's S 3072 among others;
   3b. [scan] hold S1 (y and h_final) against its plain version to 1e-4
      at the prefill shapes of the falcon-mamba-7b serving path (B 4,
      S 512, 384 and 77, d_inner 8192, ds 16), at odd shapes (S 1, S 3,
@@ -92,7 +104,10 @@ Phases (any failure exits non-zero):
      launch exactly 64 layers x 3 prefill calls = 192 times); through the
      API a straight run, a profiled decode step, a mid-run snapshot/restore
      (bit-identical transcripts and {h, conv} state), and prefill logits of
-     `pallas` against `chunked`, with each prefill call's wall time;
+     `pallas` against `chunked` in float32 compute within 1e-3 of the
+     largest logit (`held_to_chunked` and `LOGIT_TOL_F32`, one check for
+     every family held in float32, 8 to 8e), with each prefill call's wall
+     time;
   8b. [serve-hybrid] the same at the full published width and depth of
      zamba2-7b (the hybrid family: 81 Mamba2 layers in 13 groups of 6,
      each group followed by one weight-shared attention block of head
@@ -115,15 +130,43 @@ Phases (any failure exits non-zero):
      probabilities tie; one prefill call made twice must give the same
      logits and KV bit for bit; `pallas` is held to `chunked` in float32
      compute, the served bf16 difference printed beside it;
+  8d. [serve-encdec] seamless-m4t-medium at its full published width and
+     depth (12 encoder and 12 decoder layers, 16 heads of 64, vocab
+     256,206, enc_seq_len 1024; drawn once olmoe-1b-7b's parameters are
+     freed): the serve CLI must refuse it with the named error of ROADMAP
+     C8 (the engine prefills from tokens alone); then through the API,
+     `Model.prefill` with a seeded bf16 `enc_emb` (4, 1024, 1024) and 32
+     greedy `decode_step`s, for the prompt groups S 512 x 4 and S 77 x 4:
+     F1 must launch exactly (12 encoder + 12 self + 12 cross) x 2 = 72
+     times on that run (decode runs no kernel); prints TTFT and decode
+     tokens/s; one prefill call made twice must give the same logits and
+     all four state leaves (k, v, cross_k, cross_v) bit for bit; `pallas`
+     is held to `chunked` in float32 compute, bf16 printed beside it; a
+     profiled prefill call and decode step;
+  8e. [serve-vlm] llava-next-34b at its published width (d_model 7168,
+     GQA 56/8 of 128, d_ff 20480, vocab 64,000, 2880 frontend rows) with
+     its depth cut to 16 of 60 layers (37.7 GB of float32 parameters; 60
+     would not fit): two prefill calls of S 3072 x 2 (2880 rows of a
+     seeded bf16 `frontend_emb`, A then B, and 192 text tokens), each
+     followed by 32 decode steps: F1 must launch exactly 16 x 2 = 32 times
+     on that run; the frontend must change the logits; a repeated prefill
+     must give the same logits and KV caches bit for bit; `pallas` is held
+     to `chunked` in float32 compute; TTFT, decode tokens/s and the
+     profiles as in 8d (both phases run one skeleton, `phase_serve_api`);
   9. the kernel report. Launches are counted per path: the counts are
      set to 0 just before each path is driven and read just after it.
      K2 must launch on the full-save runs (the shrink and gray runs
      included), K1 on the delta-cadence runs and in every runtime run,
      K3 (which training never reaches: AdamW dirties every tile) on the
-     sparse-dirt saves, F1 on both dense serving paths, the zamba2-7b and
-     the olmoe-1b-7b ones and S1 on the falcon-mamba-7b one; every shape,
-     dtype and mask F1 was given must be one that phase 3 checked, and
-     every shape S1 was given one that phase 3b checked.
+     sparse-dirt saves, F1 on both dense serving paths, the zamba2-7b,
+     olmoe-1b-7b, seamless-m4t-medium and llava-next-34b ones and S1 on
+     the falcon-mamba-7b one; every shape, dtype and mask F1 was given
+     must be one that phase 3 checked, and every shape S1 was given one
+     that phase 3b checked. F1's entry on the kernels line carries, beside
+     its main row, the rows of head dim 112, MHA head dim 128, the hd-64
+     non-causal encoder and cross shapes and llava-next-34b's S 3072, and
+     `launches_by_path` gives each path's launches, the two new ones
+     included.
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -175,8 +218,24 @@ FLASH_SHAPES = {
     "olmoe-1b-7b prefill S 512": (4, 512, 512, 16, 16, 128),
     "olmoe-1b-7b prefill S 384": (4, 384, 384, 16, 16, 128),
     "olmoe-1b-7b prefill odd S 77": (4, 77, 77, 16, 16, 128),
+    "seamless-m4t-medium encoder S_enc 1024": (4, 1024, 1024, 16, 16, 64),
+    "seamless-m4t-medium prefill S 512": (4, 512, 512, 16, 16, 64),
+    "seamless-m4t-medium prefill odd S 77": (4, 77, 77, 16, 16, 64),
+    "seamless-m4t-medium cross S 512": (4, 512, 1024, 16, 16, 64),
+    "seamless-m4t-medium cross odd S 77": (4, 77, 1024, 16, 16, 64),
+    "llava-next-34b prefill S 3072": (2, 3072, 3072, 56, 8, 128),
     "extra: qwen2-7b suffix Sq<Sk": (4, 128, 640, 28, 4, 128),
     "extra: paper-demo S 512": (4, 512, 512, 12, 12, 64),
+}
+# the masks each shape is checked with (causal unless named here): the
+# main shape both ways, and the encdec path's bidirectional encoder and
+# its cross-attention (queries against all 1024 encoder rows) non-causal,
+# as that path gives them to F1
+FLASH_MASKS = {
+    "qwen2-7b prefill S 512": (True, False),
+    "seamless-m4t-medium encoder S_enc 1024": (False,),
+    "seamless-m4t-medium cross S 512": (False,),
+    "seamless-m4t-medium cross odd S 77": (False,),
 }
 # the shape that stands for F1 on the kernels line, and F1 at head dim 112
 # (zamba2-7b's shared block) and at MHA with head dim 128 (olmoe-1b-7b),
@@ -184,7 +243,33 @@ FLASH_SHAPES = {
 FLASH_MAIN = "qwen2-7b prefill S 512"
 FLASH_HD112 = "zamba2-7b prefill S 512"
 FLASH_MHA = "olmoe-1b-7b prefill S 512"
+# and F1 at head dim 64 non-causal (seamless-m4t-medium's encoder and its
+# cross-attention at S 512) and at llava-next-34b's GQA 56/8 at S 3072
+FLASH_ENC = "seamless-m4t-medium encoder S_enc 1024"
+FLASH_CROSS = "seamless-m4t-medium cross S 512"
+FLASH_VLM = "llava-next-34b prefill S 3072"
+# rows of the kernels line beside F1's main one: key -> shape name
+FLASH_SIDE_ROWS = {"hd112": FLASH_HD112, "mha_hd128": FLASH_MHA,
+                   "hd64_encoder": FLASH_ENC, "hd64_cross": FLASH_CROSS,
+                   "vlm_gqa_s3072": FLASH_VLM}
+# F1 against its plain version: fp32 within 2e-5, bf16 within
+# min(2e-2, 2e-2 x max|want|) (`flash_tol`) and each output row within
+# FLASH_ROW_TOL of that row's largest magnitude (`max_row_rel_err`). A
+# softmax spread over many keys (a non-causal row of 1024 keys, the late
+# rows of a causal S 3072) gives outputs far below 1, and one bound on
+# the whole output would there be a large share of a typical value; a
+# bf16 rounding is 2^-8 of its value, so one ulp of a row's largest
+# element reads at most 2^-7 of it
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+FLASH_ROW_TOL = 2e-2
+
+
+def flash_tol(dname: str, top: float) -> float:
+    """F1's bound in `dname` for an output whose largest magnitude is
+    `top`: bf16's scales with the output below 1, fp32's is absolute."""
+    if dname == "bfloat16":
+        return min(FLASH_TOL[dname], FLASH_TOL[dname] * top)
+    return FLASH_TOL[dname]
 # the serve CLI's request set: two prefill groups (512, 384) and a 77
 SERVE_PROMPTS = (512, 512, 512, 512, 384, 384, 384, 77)
 SERVE_FLAGS = ["--arch", "qwen2-7b", "--attn-impl", "pallas", "--slots",
@@ -217,27 +302,19 @@ SCAN_MAIN = "falcon-mamba-7b prefill S 512"
 SCAN_TOL = 1e-4            # the reference's own for A5, atol and rtol
 SCAN_CHUNK = 128           # falcon-mamba-7b's ssm_chunk
 SSM_FLAGS = ["--arch", "falcon-mamba-7b", *SERVE_FLAGS[2:]]
-# pallas vs chunked prefill logits of falcon-mamba-7b in float32 compute,
-# where only the scans' order of summation differs: within this share of
-# the largest logit (64 layers; the chunked route against itself at two
-# chunk lengths, printed beside it, shows the spread of that order alone)
-SSM_LOGIT_TOL_F32 = 1e-3
-# pallas vs chunked prefill logits of zamba2-7b in float32 compute, where
-# only the 13 shared-block attentions differ (F1's FMA kernel against the
-# chunked torch attention, both fp32, sums in another order): within this
-# share of the largest logit, as for the 64-layer Mamba (a random 81-layer
-# stack amplifies an fp32 rounding far less than a bf16 one). The bf16
-# (served) difference is printed beside it, with no bound: there every
-# rounding of the activations differs once the attention sums do, and a
-# deep random stack amplifies that as falcon-mamba-7b's did
-HYBRID_LOGIT_TOL_F32 = 1e-3
-# pallas vs chunked prefill logits of olmoe-1b-7b in float32 compute,
-# where only the 16 attentions differ (F1's FMA kernel against the chunked
-# torch attention): within this share of the largest logit. The router
-# then sees logits that differ in the last bits, which can move a token's
-# k-th expert only where two probabilities are within that much of a tie.
-# The bf16 (served) difference is printed beside it, with no bound
-MOE_LOGIT_TOL_F32 = 1e-3
+# pallas vs chunked prefill logits in float32 compute, where only the
+# kernels' order of summation differs (S1 against the chunked scan,
+# F1's FMA kernel against the chunked torch attention): within this share
+# of the largest logit, for every family held in float32 (`held_to_chunked`:
+# falcon-mamba-7b's 64 layers, zamba2-7b's 13 shared-block attentions,
+# olmoe-1b-7b's 16 attentions, seamless-m4t-medium and llava-next-34b). A
+# random deep stack in bf16 amplifies that order far past any tight bound
+# (for Mamba1 so does the chunked route against itself at another chunk
+# length, printed beside it), and a bf16 MoE router sends a token to
+# another expert at a near tie once an attention sum differs; a float32
+# stack amplifies an fp32 rounding far less. The served (bf16) difference
+# is printed beside it, with no bound
+LOGIT_TOL_F32 = 1e-3
 # the random models' embedding table is drawn at scale 1.0 and tied to the
 # unembedding, so greedy decode repeats the last prompt token whatever the
 # attention computes; the API checks scale it so transcripts depend on it
@@ -464,17 +541,17 @@ def flash_bound_ms(flops: int, nbytes: int, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_calls(torch, fa, q, k, v, H):
+def flash_calls(torch, fa, q, k, v, H, causal):
     """Calls bound to these inputs: F1 on the model layout, F1 alone on
     the flattened layout it also takes, (B*H, S, hd), and SDPA."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     qf, kf, vf = (t.reshape(-1, *t.shape[2:]).contiguous()
                   for t in (qt, kt, vt))
-    return (lambda: fa.flash_attention_kernel(q, k, v, causal=True),
-            lambda: fa.flash_attention_bhsd_kernel(qf, kf, vf, causal=True,
+    return (lambda: fa.flash_attention_kernel(q, k, v, causal=causal),
+            lambda: fa.flash_attention_bhsd_kernel(qf, kf, vf, causal=causal,
                                                    n_q_heads=H),
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
 
 
 def phase_flash(torch) -> tuple[dict, set]:
@@ -482,7 +559,8 @@ def phase_flash(torch) -> tuple[dict, set]:
     Returns F1's row of the kernels line and the (shape, dtype, causal)
     cases checked."""
     from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                         max_row_rel_err)
     g = torch.Generator(device="cuda").manual_seed(2)
 
     def inputs(shape, dtype):
@@ -494,17 +572,23 @@ def phase_flash(torch) -> tuple[dict, set]:
     for name, shape in FLASH_SHAPES.items():
         for dname in ("bfloat16", "float32"):
             q, k, v = inputs(shape, getattr(torch, dname))
-            for causal in ((True, False) if name == FLASH_MAIN
-                           else (True,)):
+            for causal in FLASH_MASKS.get(name, (True,)):
                 got = fa.flash_attention_kernel(q, k, v, causal=causal)
                 want = flash_attention_ref(q, k, v, causal=causal)
                 err = float((got.float() - want.float()).abs().max())
                 finite = bool(torch.isfinite(got).all())
                 errs[(name, dname, causal)] = err
+                top = float(want.float().abs().max())
+                tol = flash_tol(dname, top)
+                row = max_row_rel_err(got, want)
+                row_ok = dname != "bfloat16" or row <= FLASH_ROW_TOL
+                row_tol = FLASH_ROW_TOL if dname == "bfloat16" else "none"
                 print(f"[flash] {name} {shape} {dname} "
                       f"{'causal' if causal else 'non-causal'}: "
-                      f"max_abs_err {err:.3g} (tol {FLASH_TOL[dname]})")
-                if not finite or err > FLASH_TOL[dname]:
+                      f"max_abs_err {err:.3g} (tol {tol:.3g}; max|want| "
+                      f"{top:.3g}); per-row err/max|want| {row:.3g} (tol "
+                      f"{row_tol})")
+                if not finite or err > tol or not row_ok:
                     fail(f"F1 disagrees with its plain version: {name} "
                          f"{dname} causal={causal}")
 
@@ -535,29 +619,31 @@ def phase_flash(torch) -> tuple[dict, set]:
           "layout's bits (qwen2-7b S 512, bf16 and fp32, causal and not)")
 
     rows = {}
-    for name in (FLASH_MAIN, FLASH_HD112, FLASH_MHA,
+    for name in (FLASH_MAIN, *FLASH_SIDE_ROWS.values(),
                  "paper-demo prefill S 6", "extra: paper-demo S 512"):
         shape = FLASH_SHAPES[name]
+        causal = FLASH_MASKS.get(name, (True,))[0]
         q, k, v = inputs(shape, torch.bfloat16)
-        kern, bhsd, sdpa = flash_calls(torch, fa, q, k, v, shape[3])
+        kern, bhsd, sdpa = flash_calls(torch, fa, q, k, v, shape[3], causal)
         ms, host_ms = timed(kern)
         flat_ms, flat_host_ms = timed(bhsd)
-        plain_ms = timed(lambda: flash_attention_ref(q, k, v, causal=True),
+        plain_ms = timed(lambda: flash_attention_ref(q, k, v, causal=causal),
                          iters=5, warmup=1)[0]
-        # a yardstick only, never called by the port; Sq == Sk here, where
-        # its top-left causal alignment agrees with the reference's
+        # a yardstick only, never called by the port; where causal, Sq ==
+        # Sk, and its top-left causal alignment agrees with the reference's
         lib_ms = nondeterministic(torch, lambda: timed(sdpa)[0])
         sdpa_diff = float((nondeterministic(torch, sdpa).transpose(1, 2)
                            .float() - kern().float()).abs().max())
-        flops, nbytes = attention_work(*shape, True, 2)
+        flops, nbytes = attention_work(*shape, causal, 2)
         bms, by = flash_bound_ms(flops, nbytes, "bfloat16")
-        print(f"[flash] {name} {shape} bf16 causal, model layout: F1 "
+        mask = "causal" if causal else "non-causal"
+        print(f"[flash] {name} {shape} bf16 {mask}, model layout: F1 "
               f"{ms:.4f} ms event, host issue {host_ms:.4f} ms/call; "
               f"flattened layout {flat_ms:.4f} ms event, host issue "
               f"{flat_host_ms:.4f} ms/call; plain {plain_ms:.4f} ms; sdpa "
               f"{lib_ms:.4f} ms event (max diff to F1 {sdpa_diff:.3g}); "
               f"bound {bms:.4f} ms by {by}")
-        rows[name] = {"max_abs_err": errs[(name, "bfloat16", True)],
+        rows[name] = {"max_abs_err": errs[(name, "bfloat16", causal)],
                       "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
                       "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
                       "flops": flops}
@@ -568,11 +654,10 @@ def phase_flash(torch) -> tuple[dict, set]:
                             lambda sdpa=sdpa: nondeterministic(torch, sdpa)))
     checked = {(FLASH_SHAPES[name], dname, causal)
                for name, dname, causal in errs}
-    # the kernels line carries the hd-112 and MHA hd-128 rows beside the
-    # main one (their device times are filled in place by
-    # phase_device_times)
-    rows[FLASH_MAIN]["hd112"] = rows[FLASH_HD112]
-    rows[FLASH_MAIN]["mha_hd128"] = rows[FLASH_MHA]
+    # the kernels line carries the side rows beside the main one (their
+    # device times are filled in place by phase_device_times)
+    for key, name in FLASH_SIDE_ROWS.items():
+        rows[FLASH_MAIN][key] = rows[name]
     return rows[FLASH_MAIN], checked
 
 
@@ -975,58 +1060,27 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
 
     chunked = Model(cfg, ExecConfig(attn_impl="chunked"))
     ssm = cfg.family == "ssm"
+    # the ssm, hybrid and moe models are held in float32 compute
+    # (LOGIT_TOL_F32); dense qwen2-7b in its served bf16 (LOGIT_TOL)
     in_f32 = cfg.family in ("ssm", "hybrid", "moe")
-    if in_f32:
-        # a random deep Mamba stack in bf16 amplifies the kernels' other
-        # order of summation far past any tight tolerance (for Mamba1 so
-        # does the chunked route against itself at another chunk length,
-        # printed below), and so does a bf16 MoE router, whose exact and
-        # near ties send tokens to other experts once an attention sum
-        # differs: the kernel is held to the chunked route in float32
-        # compute, where nothing but that order differs (for the hybrid
-        # and the moe model that runs F1's float32 kernel)
-        f32 = cfg.replace(compute_dtype="float32")
-        held = (Model(f32, ExecConfig(attn_impl="pallas")),
-                Model(f32, ExecConfig(attn_impl="chunked")))
-        tol = {"ssm": SSM_LOGIT_TOL_F32, "hybrid": HYBRID_LOGIT_TOL_F32,
-               "moe": MOE_LOGIT_TOL_F32}[cfg.family]
-        held_dtype = "float32"
-    else:
-        held, tol, held_dtype = (model, chunked), LOGIT_TOL, "bfloat16"
     for rows in (prompts[:4], prompts[4:7], prompts[7:]):
         n = len(rows[0])
         toks = torch.tensor(rows, device="cuda")
         lp, p_ms = prefill(model, toks)
         lc, c_ms = prefill(chunked, toks)
-        served = (f"wall {p_ms:.1f} ms pallas, {c_ms:.1f} ms chunked "
-                  f"({cfg.compute_dtype}, the served dtype)")
+        print(f"[{tag}] prefill S {n} x {len(rows)}: wall {p_ms:.1f} ms "
+              f"pallas, {c_ms:.1f} ms chunked ({cfg.compute_dtype}, the "
+              f"served dtype)")
         if in_f32:
-            rel = float((lp - lc).abs().max()) / float(lc.abs().max())
-            same = int((lp.argmax(-1) == lc.argmax(-1)).sum())
-            served += (f", logits max diff {rel:.3g} of the largest, first "
-                       f"tokens equal on {same} of {len(rows)} lanes; held "
-                       f"in {held_dtype}")
-            lc16 = lc
-            (lp, p_ms), (lc, c_ms) = (prefill(m, toks) for m in held)
-            served += f" (wall {p_ms:.1f} ms pallas, {c_ms:.1f} ms chunked)"
-            # a yardstick for the served difference: the chunked route in
-            # the served dtype against itself in float32
-            rel = float((lc16 - lc).abs().max()) / float(lc.abs().max())
-            served += (f"; yardstick: chunked {cfg.compute_dtype} vs "
-                       f"chunked float32 max diff {rel:.3g} of the largest")
-        scale = float(lc.abs().max())
-        rel = float((lp - lc).abs().max()) / scale
-        tp, tc = lp.argmax(-1), lc.argmax(-1)
-        for b in range(len(rows)):
-            gap = float(lc[b, tc[b]] - lc[b, tp[b]])
-            if gap > tol * scale:
-                fail(f"prompt {n}: pallas's first token {int(tp[b])} is "
-                     f"{gap:.3g} below chunked's {int(tc[b])}")
-        print(f"[{tag}] prefill S {n} x {len(rows)}: {served}: pallas vs "
-              f"chunked logits max diff {rel:.3g} of the largest (tol "
-              f"{tol}); first tokens equal on {int((tp == tc).sum())} of "
-              f"{len(rows)} lanes")
-        if rel > tol:
+            held_to_chunked(torch, cfg, params, {"tokens": toks}, tag,
+                            f"S {n} x {len(rows)}")
+            continue
+        rel = float((lp - lc).abs().max()) / float(lc.abs().max())
+        same = first_tokens_held(lp, lc, LOGIT_TOL, f"{tag} prompt {n}")
+        print(f"[{tag}] prefill S {n} x {len(rows)}: pallas vs chunked "
+              f"logits max diff {rel:.3g} of the largest (tol {LOGIT_TOL}); "
+              f"first tokens equal on {same} of {len(rows)} lanes")
+        if rel > LOGIT_TOL:
             fail(f"pallas and chunked prefill logits differ at S {n}")
     if cfg.family == "moe":
         moe_routing(torch, model, params, prompts, tag)
@@ -1037,7 +1091,7 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
                       lambda: model.prefill(params, {"tokens": toks},
                                             max_len=1024))
     if ssm:
-        for c in (cfg, f32):
+        for c in (cfg, cfg.replace(compute_dtype="float32")):
             lc = prefill(Model(c, ExecConfig(attn_impl="chunked")), toks)[0]
             l64 = prefill(Model(c.replace(ssm_chunk=64),
                                 ExecConfig(attn_impl="chunked")), toks)[0]
@@ -1052,6 +1106,255 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# the encdec and vlm phases: 32 greedy decode steps after each prefill
+FRONTEND_DECODE_STEPS = 32
+# seamless-m4t-medium's prompt groups (B, S): an even and an odd length
+ENCDEC_GROUPS = ((4, 512), (4, 77))
+# llava-next-34b: the depth kept of its 60 layers (all 60 are 135.9 GB of
+# float32 parameters; 16 are 37.7 GB), its batch and prompt (the frontend's
+# 2880 rows, then 192 text tokens)
+VLM_LAYERS = 16
+VLM_BATCH, VLM_SEQ = 2, 3072
+
+
+def greedy_decode(torch, model, params, logits, state, S: int, steps: int):
+    """`steps` greedy decode steps after a prefill to S tokens: (the
+    tokens, wall seconds of the steps, the final logits)."""
+    toks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(steps):
+            nxt = logits[:, -1].argmax(-1, keepdim=True)
+            toks.append(nxt)
+            logits, state = model.decode_step(params, nxt, state, S + i)
+        toks = torch.cat(toks, 1).cpu()
+    return toks, time.perf_counter() - t0, logits
+
+
+def first_tokens_held(lp, lc, tol: float, what: str) -> int:
+    """Fail where pallas's greedy first token (logits `lp`) is more than
+    `tol` of the largest logit below chunked's (`lc`) in chunked's logits;
+    returns the count of lanes whose first tokens are equal."""
+    scale = float(lc.abs().max())
+    tp, tc = lp.argmax(-1), lc.argmax(-1)
+    for b in range(lp.shape[0]):
+        gap = float(lc[b, tc[b]] - lc[b, tp[b]])
+        if gap > tol * scale:
+            fail(f"{what}: pallas's first token {int(tp[b])} is {gap:.3g} "
+                 f"below chunked's {int(tc[b])}")
+    return int((tp == tc).sum())
+
+
+def held_to_chunked(torch, cfg, params, batch, tag: str, what: str) -> None:
+    """Prefill logits of `pallas` against `chunked` on `batch`: bounded in
+    float32 compute, where only the attention sums' order differs; the
+    served dtype's difference printed beside it, with the chunked route in
+    the served dtype against itself in float32 as its yardstick."""
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import ExecConfig
+    out = {}
+    for dtype in (cfg.compute_dtype, "float32"):
+        for impl in ("pallas", "chunked"):
+            m = Model(cfg.replace(compute_dtype=dtype),
+                      ExecConfig(attn_impl=impl))
+            with torch.no_grad():
+                out[dtype, impl] = m.prefill(params, batch, max_len=1024)[
+                    0][:, -1].float()
+    lc = out["float32", "chunked"]
+    scale = float(lc.abs().max())
+    rel = {k: float((v - lc).abs().max()) / scale for k, v in out.items()}
+    served = out[cfg.compute_dtype, "chunked"]
+    rel16 = float((out[cfg.compute_dtype, "pallas"] - served).abs().max()) \
+        / float(served.abs().max())
+    same = first_tokens_held(out["float32", "pallas"], lc, LOGIT_TOL_F32,
+                             f"{tag} {what}")
+    print(f"[{tag}] prefill {what}: pallas vs chunked logits, float32 "
+          f"compute, max diff {rel['float32', 'pallas']:.3g} of the largest "
+          f"(tol {LOGIT_TOL_F32}), first tokens equal on {same} of "
+          f"{lc.shape[0]} lanes; in {cfg.compute_dtype} (served, not "
+          f"bounded) {rel16:.3g}; yardstick: chunked {cfg.compute_dtype} vs "
+          f"chunked float32 {rel[cfg.compute_dtype, 'chunked']:.3g}")
+    if rel["float32", "pallas"] > LOGIT_TOL_F32:
+        fail(f"{tag}: pallas and chunked prefill logits differ ({what})")
+
+
+def phase_serve_api(torch, tag: str, cfg, batches: list, max_len: int,
+                    want_f1: int, seen: set):
+    """Serve `cfg` (random parameters, drawn on the card) through the model
+    API with `attn_impl="pallas"`: for each (label, batch) of `batches`, a
+    `Model.prefill` then FRONTEND_DECODE_STEPS greedy `decode_step`s, F1's
+    launches counted over that run and held to `want_f1`. Then: the first
+    batch's prefill made twice must give the logits and every state leaf
+    bit for bit, each batch's prefill is held to `chunked`, and a prefill
+    call and 4 decode steps are profiled.
+    Returns (F1's launches on the counted run, each batch's last prefill
+    logits in float32); `seen` gets F1's cases in it."""
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import ExecConfig
+    from repro_torch.tree import tree_leaves
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, ExecConfig(attn_impl="pallas"))
+    t0 = time.monotonic()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"[{tag}] init: {n_params} float32 parameters drawn on the card "
+          f"in {time.monotonic() - t0:.2f} s")
+    params["embedding"]["table"].mul_(TABLE_SCALE)
+
+    # warm: cuBLAS picks its algorithms for each new shape on a first call
+    with torch.no_grad():
+        for _, batch in batches:
+            model.prefill(params, batch, max_len=max_len)
+    torch.cuda.synchronize()
+    reset_launches()
+    firsts = []
+    with recording_flash_shapes(seen):
+        for label, batch in batches:
+            nb, S = batch["tokens"].shape
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, state = model.prefill(params, batch, max_len=max_len)
+                first = logits[:, -1].argmax(-1).cpu()
+            ttft = time.perf_counter() - t0
+            toks, wall, last = greedy_decode(torch, model, params, logits,
+                                             state, S, FRONTEND_DECODE_STEPS)
+            if not (torch.isfinite(logits).all() and torch.isfinite(last)
+                    .all()):
+                fail(f"{tag}: non-finite logits at S {S} ({label})")
+            firsts.append(logits[:, -1].float())
+            print(f"[{tag}] prefill S {S} x {nb} ({label}): time to first "
+                  f"token {ttft:.3f} s; {FRONTEND_DECODE_STEPS} decode steps "
+                  f"in {wall:.3f} s, "
+                  f"{nb * FRONTEND_DECODE_STEPS / wall:.1f} decode tokens/s; "
+                  f"state {state_shapes(state)}; first tokens "
+                  f"{first.tolist()}, "
+                  f"{len({tuple(r) for r in toks.tolist()})} distinct "
+                  f"transcripts")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if launches["flash_attention"] != want_f1:
+        fail(f"F1 launched {launches['flash_attention']} times on the "
+             f"{cfg.name} path, expected {want_f1}")
+    print(f"[{tag}] launches {launches}")
+
+    label, batch = batches[0]
+    S = batch["tokens"].shape[1]
+    with torch.no_grad():
+        a = model.prefill(params, batch, max_len=max_len)
+        b = model.prefill(params, batch, max_len=max_len)
+    if not torch.equal(a[0], b[0]) or sorted(a[1]) != sorted(b[1]) or not \
+            all(torch.equal(a[1][n], b[1][n]) for n in a[1]):
+        fail(f"{tag}: two prefill calls on the same input gave different "
+             "bits")
+    print(f"[{tag}] the S {S} ({label}) prefill call made twice: logits and "
+          f"all {len(a[1])} state leaves {state_shapes(a[1])} bit-identical")
+    for label_i, batch_i in batches:
+        nb_i, S_i = batch_i["tokens"].shape
+        held_to_chunked(torch, cfg, params, batch_i, tag,
+                        f"S {S_i} x {nb_i} ({label_i})")
+    state = a[1]
+    with torch.no_grad():
+        print_profile(torch, tag, f"a prefill call (S {S} x "
+                      f"{batch['tokens'].shape[0]}, pallas, "
+                      f"{cfg.compute_dtype})", "call", 1,
+                      lambda: model.prefill(params, batch, max_len=max_len))
+        tok = a[0][:, -1].argmax(-1, keepdim=True)
+        pos = iter(range(S, max_len))
+        print_profile(torch, tag, f"4 decode steps "
+                      f"({batch['tokens'].shape[0]} lanes)", "step", 4,
+                      lambda: model.decode_step(params, tok, state,
+                                                next(pos)))
+    print(f"[{tag}] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del params, a, b, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, firsts
+
+
+def phase_serve_encdec(torch, seen: set) -> dict:
+    """Phase 8d: seamless-m4t-medium at full published width and depth
+    through the model API with the encoder's input (the serving engine
+    refuses encdec: ROADMAP C8, checked on the serve CLI first). Returns
+    F1's launches on the counted run (the two prompt groups' prefill and
+    decode); `seen` gets F1's cases in it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main as serve_main
+    tag = "serve-encdec"
+    cfg = get_config("seamless-m4t-medium")
+    print(f"[{tag}] {cfg.name}: {cfg.n_enc_layers} encoder and "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, enc_seq_len "
+          f"{cfg.enc_seq_len}, frontend {cfg.frontend!r}; depth not cut")
+    flags = ["--arch", cfg.name, *SERVE_FLAGS[2:]]
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            serve_main(flags)
+    except ValueError as e:
+        if "ROADMAP C8" not in str(e):
+            raise
+        print(f"[{tag}] CLI {' '.join(flags)}: refused as it must be: "
+              f"ValueError: {e}")
+    else:
+        fail(f"the serve CLI served the encdec model {cfg.name}; the engine "
+             "prefills from tokens alone (ROADMAP C8)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    enc = torch.randn((ENCDEC_GROUPS[0][0], cfg.enc_seq_len, cfg.d_model),
+                      generator=g, device="cuda").to(torch.bfloat16)
+    batches = [(f"enc_emb {tuple(enc.shape)}",
+                {"tokens": torch.randint(2, cfg.vocab_size, (b, S),
+                                         generator=g, device="cuda"),
+                 "enc_emb": enc}) for b, S in ENCDEC_GROUPS]
+    want = (cfg.n_enc_layers + 2 * cfg.n_layers) * len(batches)
+    print(f"[{tag}] F1 must launch ({cfg.n_enc_layers} encoder + "
+          f"{cfg.n_layers} self + {cfg.n_layers} cross) x {len(batches)} "
+          f"prefills = {want} times")
+    launches, _ = phase_serve_api(torch, tag, cfg, batches, 1024, want, seen)
+    return launches
+
+
+def phase_serve_vlm(torch, seen: set) -> dict:
+    """Phase 8e: llava-next-34b at its published width, depth cut to
+    VLM_LAYERS of 60, through the model API with two frontend inputs, A
+    and B, on the same tokens; the frontend must change the logits.
+    Returns F1's launches on the counted run (each input's prefill and
+    decode); `seen` gets F1's cases in it."""
+    from repro_torch.configs import get_config
+    tag = "serve-vlm"
+    full = get_config("llava-next-34b")
+    cfg = full.replace(n_layers=VLM_LAYERS)
+    nf = cfg.n_frontend_tokens
+    print(f"[{tag}] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, hd {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, {nf} frontend rows; depth CUT to "
+          f"{cfg.n_layers} of {full.n_layers} layers (all {full.n_layers} "
+          f"in float32 would not fit in the card's 80 GB)")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(2, cfg.vocab_size, (VLM_BATCH, VLM_SEQ),
+                         generator=g, device="cuda")
+    batches = [(f"frontend {name}: {nf} rows + {VLM_SEQ - nf} text tokens",
+                {"tokens": toks, "frontend_emb": torch.randn(
+                    (VLM_BATCH, nf, cfg.d_model), generator=g,
+                    device="cuda").to(torch.bfloat16)}) for name in "AB"]
+    want = cfg.n_layers * len(batches)
+    print(f"[{tag}] F1 must launch {cfg.n_layers} layers x {len(batches)} "
+          f"prefills = {want} times")
+    launches, (la, lb) = phase_serve_api(torch, tag, cfg, batches,
+                                         VLM_SEQ + 64, want, seen)
+    diff = float((la - lb).abs().max()) / float(la.abs().max())
+    if diff == 0.0:
+        fail(f"{tag}: the frontend input did not change the logits")
+    print(f"[{tag}] the frontend changes the logits: A vs B max diff "
+          f"{diff:.3g} of the largest")
     return launches
 
 
@@ -1608,6 +1911,9 @@ def main() -> int:
     by_path["serve-olmoe-1b-7b"] = phase_serve(
         torch, "olmoe-1b-7b", "flash_attention",
         recording_flash_shapes(flash_seen), "serve-moe")
+    by_path["serve-seamless-m4t-medium"] = phase_serve_encdec(torch,
+                                                              flash_seen)
+    by_path["serve-llava-next-34b"] = phase_serve_vlm(torch, flash_seen)
     unchecked = sorted(flash_seen - flash_checked)
     if unchecked:
         fail(f"the serving paths gave F1 cases that [flash] did not hold "
@@ -1627,7 +1933,9 @@ def main() -> int:
                 "gather_tiles": ["sparse-dirt"],
                 "flash_attention": ["serve-qwen2-7b",
                                     "serve-cluster-paper-demo",
-                                    "serve-zamba2-7b", "serve-olmoe-1b-7b"],
+                                    "serve-zamba2-7b", "serve-olmoe-1b-7b",
+                                    "serve-seamless-m4t-medium",
+                                    "serve-llava-next-34b"],
                 "selective_scan": ["serve-falcon-mamba-7b"]}
     for name, paths in required.items():
         for path in paths:

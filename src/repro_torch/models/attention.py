@@ -1,5 +1,6 @@
-"""Attention, dense path: MHA/GQA with optional qk-norm, QKV bias, RoPE
-and KV-cache decode.
+"""Attention: MHA/GQA with optional qk-norm, QKV bias, RoPE, KV-cache
+decode, and an encoder-decoder's cross-attention (K/V from the encoder
+output, non-causal, no RoPE; a static cross K/V cache at decode).
 
 Three interchangeable inner implementations (same math):
   - "naive":   materializes (B,H,S,S) scores — reference / tiny tests only.
@@ -47,27 +48,37 @@ def attention_init(gen, cfg: ModelConfig, dtype, lead=()):
     return p
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions, compute_dtype):
-    B, S, _ = x.shape
-    hd = cfg.head_dim
-    xc = x.to(compute_dtype)
-    q = xc @ p["wq"].to(compute_dtype)
-    k = xc @ p["wk"].to(compute_dtype)
-    v = xc @ p["wv"].to(compute_dtype)
+def _heads(p, xc, cfg: ModelConfig, name: str, n_heads: int, positions,
+           compute_dtype):
+    """One of q, k, v (`name`) of the compute-dtype input `xc` (B,S,D):
+    projected (bias added), split into heads, qk-normed and rotated as
+    `_project_qkv` does it."""
+    B, S, _ = xc.shape
+    t = xc @ p["w" + name].to(compute_dtype)
     if cfg.qkv_bias:
-        q = q + p["bq"].to(compute_dtype)
-        k = k + p["bk"].to(compute_dtype)
-        v = v + p["bv"].to(compute_dtype)
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
-    if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    if positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+        t = t + p["b" + name].to(compute_dtype)
+    t = t.reshape(B, S, n_heads, cfg.head_dim)
+    if cfg.qk_norm and name != "v":
+        t = rmsnorm(p[name + "_norm"], t, cfg.norm_eps)
+    if positions is not None and name != "v":
+        t = apply_rope(t, positions, cfg.rope_theta)
+    return t
+
+
+def _project_qkv(p, x, cfg: ModelConfig, positions, compute_dtype):
+    q = _project_q(p, x, cfg, positions, compute_dtype)
+    return (q, *_project_kv(p, x, cfg, positions, compute_dtype))
+
+
+def _project_q(p, x, cfg: ModelConfig, positions, compute_dtype):
+    return _heads(p, x.to(compute_dtype), cfg, "q", cfg.n_heads, positions,
+                  compute_dtype)
+
+
+def _project_kv(p, x, cfg: ModelConfig, positions, compute_dtype):
+    xc = x.to(compute_dtype)
+    return tuple(_heads(p, xc, cfg, n, cfg.n_kv_heads, positions,
+                        compute_dtype) for n in ("k", "v"))
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -135,8 +146,15 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: Optional[torch.Tensor] = None,
               causal: bool = True,
               impl: str = "chunked",
+              kv_input: Optional[torch.Tensor] = None,
               compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Full attention block: proj -> inner attention -> output proj."""
+    """Full attention block: proj -> inner attention -> output proj.
+
+    kv_input: encoder output (B, S_enc, D) for cross-attention; K/V are then
+    projected from it (no RoPE on q, k or v, non-causal)."""
+    if kv_input is not None:
+        return cross_attention_with_kv(p, x, kv_input, cfg, impl=impl,
+                                       compute_dtype=compute_dtype)[0]
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
@@ -167,6 +185,28 @@ def attention_with_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return o @ p["wo"].to(compute_dtype), k, v
 
 
+def cross_attention_with_kv(p: Params, x: torch.Tensor,
+                            enc_out: torch.Tensor, cfg: ModelConfig, *,
+                            impl: str = "chunked",
+                            compute_dtype=torch.bfloat16):
+    """Cross-attention of x (B,S,D) over the encoder output (B,S_enc,D),
+    non-causal and without RoPE: (out, k, v), k and v as
+    `project_cross_kv` gives them, so an encdec prefill projects the cross
+    K/V once for both the attention and the decode cache."""
+    B, S, _ = x.shape
+    q = _project_q(p, x, cfg, None, compute_dtype)
+    k, v = project_cross_kv(p, enc_out, cfg, compute_dtype)
+    o = _inner(impl, q, k, v, False).reshape(B, S,
+                                             cfg.n_heads * cfg.head_dim)
+    return o @ p["wo"].to(compute_dtype), k, v
+
+
+def project_cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig,
+                     compute_dtype=torch.bfloat16):
+    """Cross-attention K/V from encoder output (computed once, then cached)."""
+    return _project_kv(p, enc_out, cfg, None, compute_dtype)
+
+
 # ------------------------------------------------------------- decode paths
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
@@ -174,6 +214,23 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
     shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cross_decode_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                           cross_k: torch.Tensor, cross_v: torch.Tensor,
+                           compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Decode-time cross-attention of x (B,1,D) over a static encoder K/V
+    cache (B,S_enc,Hkv,hd): no mask, float32 scores, the softmax weights
+    in the compute dtype."""
+    B = x.shape[0]
+    q = _project_q(p, x, cfg, None, compute_dtype)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kf = _repeat_kv(cross_k.to(compute_dtype), H // Hkv)
+    vf = _repeat_kv(cross_v.to(compute_dtype), H // Hkv)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kf).float() / math.sqrt(hd)
+    w = torch.softmax(s, dim=-1).to(compute_dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", w, vf).reshape(B, 1, H * hd)
+    return o @ p["wo"].to(compute_dtype)
 
 
 def decode_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,

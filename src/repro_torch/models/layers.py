@@ -31,6 +31,14 @@ def _init(gen: torch.Generator, shape, dtype, scale=None) -> torch.Tensor:
     return x.to(torch_dtype(dtype))
 
 
+def dense_init(gen, d_in, d_out, dtype):
+    return {"w": _init(gen, (d_in, d_out), dtype)}
+
+
+def dense(p: Params, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    return x.to(compute_dtype) @ p["w"].to(compute_dtype)
+
+
 # ------------------------------------------------------------------ rmsnorm
 
 def rmsnorm_init(d, dtype, device, lead=()):

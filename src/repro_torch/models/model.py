@@ -1,12 +1,16 @@
-"""Model API of the dense, moe (top-k routed experts with capacity), ssm
-(Mamba1) and hybrid (Mamba2 + a shared attention block, zamba2-style)
-families: config -> init / forward / loss_fn / prefill / decode_step.
+"""Model API of every architecture family: dense, vlm (the dense stack
+behind a frontend that overwrites the first rows of the embedding), moe
+(top-k routed experts with capacity), ssm (Mamba1), hybrid (Mamba2 + a
+shared attention block, zamba2-style) and encdec (a bidirectional encoder
+over frontend frame embeddings, and a decoder that cross-attends to it):
+config -> init / forward / loss_fn / prefill / decode_step.
 
 The parameter tree has the JAX package's structure and leaf paths
 (`embedding/table`, `stack/layers/...` with a leading L axis, a hybrid's
-`stack/shared/...` and `stack/tail/...`, `ln_f`), so either package reads
-the other's checkpoints, and `params_from_jax` carries the reference's
-parameters (or whole train state) across.
+`stack/shared/...` and `stack/tail/...`, an encdec's
+`stack/enc_layers/...`, `frontend_proj/w`, `ln_enc`, `ln_f`), so either
+package reads the other's checkpoints, and `params_from_jax` carries the
+reference's parameters (or whole train state) across.
 """
 from __future__ import annotations
 
@@ -21,9 +25,10 @@ from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
 from .config import ModelConfig
-from .layers import (embed, embedding_init, mlp, rmsnorm, rmsnorm_init,
-                     torch_dtype, unembed)
-from .transformer import (ExecConfig, _layer, _n_stacked, _require_ported,
+from .layers import (dense, dense_init, embed, embedding_init, mlp, rmsnorm,
+                     rmsnorm_init, torch_dtype, unembed)
+from .transformer import (ExecConfig, _layer, _n_stacked,
+                          decode_state_batch_axes, encoder_forward, family,
                           stack_forward, stack_init)
 
 Params = Any
@@ -66,21 +71,54 @@ class Model:
         """Random parameters drawn from `gen`, on `gen.device`."""
         cfg = self.cfg
         dtype = cfg.param_dtype
-        return {
+        params = {
             "embedding": embedding_init(gen, cfg.vocab_size, cfg.d_model,
                                         dtype),
             "stack": stack_init(gen, cfg, dtype),
             "ln_f": rmsnorm_init(cfg.d_model, dtype, gen.device),
         }
+        if cfg.frontend:
+            params["frontend_proj"] = dense_init(gen, cfg.d_model,
+                                                 cfg.d_model, dtype)
+        if cfg.family == "encdec":
+            params["ln_enc"] = rmsnorm_init(cfg.d_model, dtype, gen.device)
+        return params
+
+    def _embed_inputs(self, params, batch, dt):
+        """Token embedding; in a vlm model with `frontend_emb` (B,nf,D) in
+        the batch, its projection overwrites the first nf rows. A prompt
+        shorter than nf would keep no text token (the reference then
+        returns nf frontend rows; ROADMAP C9): the port raises."""
+        x = embed(params["embedding"], batch["tokens"], dt)
+        if self.cfg.family == "vlm" and "frontend_emb" in batch:
+            fe = dense(params["frontend_proj"], batch["frontend_emb"], dt)
+            nf = fe.shape[1]
+            if x.shape[1] < nf:
+                raise ValueError(
+                    f"a vlm prompt needs S >= frontend_emb.shape[1]: "
+                    f"{x.shape[1]} tokens for {nf} frontend rows would keep "
+                    f"no text token (ROADMAP C9)")
+            x = torch.cat([fe, x[:, nf:]], dim=1)
+        return x
+
+    def _encode(self, params, batch, dt):
+        """An encdec model's encoder output, normed: the frontend's
+        projection of `enc_emb` (B,S_enc,D) through the encoder."""
+        fe = dense(params["frontend_proj"], batch["enc_emb"], dt)
+        enc_out = encoder_forward(params["stack"], fe, self.cfg, self.ec, dt)
+        return rmsnorm(params["ln_enc"], enc_out, self.cfg.norm_eps)
 
     def forward(self, params, batch):
         """Full-sequence forward -> (hidden (B,S,D), aux_loss)."""
         cfg, ec = self.cfg, self.ec
         dt = torch_dtype(cfg.compute_dtype)
-        x = embed(params["embedding"], batch["tokens"], dt)
+        x = self._embed_inputs(params, batch, dt)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
-        h, aux = stack_forward(params["stack"], x, cfg, ec, positions, dt)
+        enc_out = self._encode(params, batch, dt) \
+            if cfg.family == "encdec" else None
+        h, aux = stack_forward(params["stack"], x, cfg, ec, positions, dt,
+                               enc_out=enc_out)
         h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
         return h, aux
 
@@ -104,49 +142,29 @@ class Model:
 
     def init_decode_state(self, batch: int, max_len: int, *, device=None):
         """The zeroed decode state on `device` (`cuda` unless named):
-        dense and moe, KV caches {"k", "v"} of shape (L, batch, max_len,
-        Hkv, hd) in the compute dtype; ssm, {"h": (L, batch, di, ds), "conv":
-        (L, batch, K-1, di)} in float32, whatever max_len is; hybrid,
+        dense, vlm and moe, KV caches {"k", "v"} of shape (L, batch,
+        max_len, Hkv, hd) in the compute dtype; encdec, those and the
+        cross K/V caches {"cross_k", "cross_v"} of shape (L, batch,
+        enc_seq_len, Hkv, hd) in the compute dtype; ssm, {"h": (L, batch,
+        di, ds), "conv": (L, batch, K-1, di)} in float32, whatever max_len
+        is; hybrid,
         {"mamba": {"h": (G, E, batch, nh, hp, ds), "conv": (G, E, batch,
         K-1, di+2ds)} in float32, "tail": the same leaves with lead (T,)
         (absent when T is 0), "attn": {"k", "v"} (G, batch, max_len, Hkv,
         hd) in the compute dtype}, with G, T = divmod(n_layers,
-        attn_every) and E = attn_every."""
+        attn_every) and E = attn_every. The leaves are built by the
+        family's row of `transformer.FAMILIES`."""
         cfg = self.cfg
-        _require_ported(cfg)
-        device = resolve(device)
-        dt = torch_dtype(cfg.compute_dtype)
-        if cfg.family == "ssm":
-            return mamba_mod.mamba_init_state(cfg, batch, torch.float32,
-                                              device, lead=(cfg.n_layers,))
-        if cfg.family == "hybrid":
-            G, tail = divmod(cfg.n_layers, cfg.attn_every)
-            state = {"mamba": mamba_mod.mamba_init_state(
-                cfg, batch, torch.float32, device,
-                lead=(G, cfg.attn_every))}
-            if tail:
-                state["tail"] = mamba_mod.mamba_init_state(
-                    cfg, batch, torch.float32, device, lead=(tail,))
-            state["attn"] = attn_mod.init_kv_cache(cfg, batch, max_len, G,
-                                                   dt, device)
-            return state
-        return attn_mod.init_kv_cache(cfg, batch, max_len, cfg.n_layers, dt,
-                                      device)
+        return family(cfg).init_state(cfg, batch, max_len,
+                                      torch_dtype(cfg.compute_dtype),
+                                      resolve(device))
 
     def decode_state_batch_axes(self):
         """A tree shaped like `init_decode_state`'s whose leaves are the
         batch axis of each state leaf: 1 under a lead of one stacked axis
         (layers, groups, the tail), 2 under a hybrid's (G, E) lead. The
         serving engine splices prefilled lanes along these axes."""
-        cfg = self.cfg
-        _require_ported(cfg)
-        if cfg.family == "hybrid":
-            axes = {"mamba": {"h": 2, "conv": 2}, "attn": {"k": 1, "v": 1}}
-            if cfg.n_layers % cfg.attn_every:
-                axes["tail"] = {"h": 1, "conv": 1}
-            return axes
-        keys = ("h", "conv") if cfg.family == "ssm" else ("k", "v")
-        return {k: 1 for k in keys}
+        return decode_state_batch_axes(self.cfg)
 
     # ------------------------------------------------------------ prefill
 
@@ -156,11 +174,16 @@ class Model:
         continue in place; an ssm state is the recurrent state after the
         prompt (`attn_impl="pallas"`: scanned by S1 on the card, in a
         Mamba1 model). A hybrid model's shared block runs its attention
-        through F1 under "pallas", once per group."""
+        through F1 under "pallas", once per group; an encdec model runs
+        its encoder (non-causal), each decoder layer's self-attention and
+        its cross-attention over the encoder through F1, and returns the
+        cross K/V caches {"cross_k", "cross_v"} (L, B, S_enc, Hkv, hd)
+        beside the self-attention ones. A vlm model's prompt embedding
+        takes `batch["frontend_emb"]` where the batch has it."""
         cfg = self.cfg
-        _require_ported(cfg)
+        family(cfg)                     # ValueError for an unknown family
         dt = torch_dtype(cfg.compute_dtype)
-        x = embed(params["embedding"], batch["tokens"], dt)
+        x = self._embed_inputs(params, batch, dt)
         if cfg.family == "ssm":
             return self._prefill_ssm(params, x, dt)
         if cfg.family == "hybrid":
@@ -169,15 +192,24 @@ class Model:
         positions = torch.arange(S, device=x.device)[None, :]
         state = attn_mod.init_kv_cache(cfg, B, max(max_len, S), cfg.n_layers,
                                        dt, x.device)
+        enc_out = None
+        if cfg.family == "encdec":
+            enc_out = self._encode(params, batch, dt)
+            cross = attn_mod.init_kv_cache(cfg, B, enc_out.shape[1],
+                                           cfg.n_layers, dt, x.device)
+            state.update(cross_k=cross["k"], cross_v=cross["v"])
         for i in range(cfg.n_layers):
             x = self._prefill_dense(_layer(params["stack"]["layers"], i), x,
-                                    positions, state, i, dt)
+                                    positions, state, i, dt, enc_out)
         h = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
         return unembed(params["embedding"], h, dt), state
 
-    def _prefill_dense(self, lp, x, positions, caches, i: int, dt):
+    def _prefill_dense(self, lp, x, positions, caches, i: int, dt,
+                       enc_out=None):
         """One dense (or moe) block's prefill; its K/V go to row i of
-        `caches`."""
+        `caches`. With `enc_out`, an encdec decoder block: the
+        cross-attention over it comes between self-attention and MLP, its
+        K/V (projected once) to row i of the cross caches."""
         cfg = self.cfg
         o, k, v = attn_mod.attention_with_kv(
             lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
@@ -186,6 +218,13 @@ class Model:
         S = x.shape[1]
         caches["k"][i, :, :S] = k.to(dt)
         caches["v"][i, :, :S] = v.to(dt)
+        if enc_out is not None:
+            o, ck, cv = attn_mod.cross_attention_with_kv(
+                lp["cross"], rmsnorm(lp["ln_x"], x, cfg.norm_eps), enc_out,
+                cfg, impl=self.ec.attn_impl, compute_dtype=dt)
+            x = x + o
+            caches["cross_k"][i] = ck.to(dt)
+            caches["cross_v"][i] = cv.to(dt)
         return x + self._mlp(lp, rmsnorm(lp["ln2"], x, cfg.norm_eps), dt)
 
     def _mlp(self, lp, x, dt):
@@ -245,9 +284,11 @@ class Model:
 
         Returns (logits (B,1,V), state). The leaves of `state` (KV caches,
         or the ssm state, which ignores `pos`) are updated in place (the
-        reference donates them to the same end)."""
+        reference donates them to the same end); an encdec model's cross
+        K/V caches are read, never written. Every family embeds the tokens
+        alone (a vlm frontend enters at prefill only)."""
         cfg = self.cfg
-        _require_ported(cfg)
+        family(cfg)                     # ValueError for an unknown family
         dt = torch_dtype(cfg.compute_dtype)
         x = embed(params["embedding"], token, dt)
         stack = params["stack"]
@@ -264,19 +305,28 @@ class Model:
                 x = self._decode_mamba(stack["tail"], x, state["tail"], dt)
         else:
             for i in range(cfg.n_layers):
+                cross = (state["cross_k"][i], state["cross_v"][i]) \
+                    if cfg.family == "encdec" else None
                 x = self._decode_dense(_layer(stack["layers"], i), x,
-                                       state["k"][i], state["v"][i], pos, dt)
+                                       state["k"][i], state["v"][i], pos, dt,
+                                       cross)
         h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return unembed(params["embedding"], h, dt), state
 
-    def _decode_dense(self, lp, x, cache_k, cache_v, pos, dt):
+    def _decode_dense(self, lp, x, cache_k, cache_v, pos, dt, cross=None):
         """One dense (or moe) block's decode step; writes the caches in
-        place."""
+        place. With `cross` (one layer's cross K/V caches), an encdec
+        decoder block: the cross-attention comes between self-attention
+        and MLP."""
         cfg = self.cfg
         o, _, _ = attn_mod.decode_attention(
             lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
             cache_k=cache_k, cache_v=cache_v, pos=pos, compute_dtype=dt)
         x = x + o
+        if cross is not None:
+            x = x + attn_mod.cross_decode_attention(
+                lp["cross"], rmsnorm(lp["ln_x"], x, cfg.norm_eps), cfg,
+                cross_k=cross[0], cross_v=cross[1], compute_dtype=dt)
         return x + self._mlp(lp, rmsnorm(lp["ln2"], x, cfg.norm_eps), dt)
 
     def _decode_mamba(self, layers, x, states, dt):

@@ -43,6 +43,11 @@ hd)`, axis 2 of a hybrid's Mamba2 `(G, E, B, ...)`); the reference finds
 that axis by its size, which picks a layer or group axis when one equals
 n_slots and prefill_batch (ROADMAP C2). `mesh`/`rules` (the sharded
 engine) are not ported yet.
+
+Prefill takes the prompt's tokens alone, as in the reference: a vlm model
+is served without its frontend, and an encdec model, whose prefill needs
+the encoder's input `enc_emb`, is refused when the engine is made (the
+reference fails at its first admission; ROADMAP C8).
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ import torch
 
 from repro_torch.device import HostCopy, host_leaf, to_device
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import family
 from repro_torch.scenarios import hooks
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -118,6 +124,15 @@ class ServeEngine:
             raise NotImplementedError(
                 "a mesh-sharded ServeEngine is not ported yet: ROADMAP "
                 "queue A, item 7 (sharding)")
+        needs = [k for k in family(model.cfg).prefill_inputs
+                 if k != "tokens"]
+        if needs:
+            raise ValueError(
+                f"ServeEngine prefills from the prompt's tokens alone, and "
+                f"the {model.cfg.family} model {model.cfg.name!r} needs "
+                f"{', '.join(needs)} at prefill (ROADMAP C8): call "
+                f"Model.prefill and Model.decode_step with those inputs "
+                f"instead")
         self.model = model
         self.n_slots = n_slots
         self.max_len = max_len

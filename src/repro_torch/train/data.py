@@ -3,7 +3,7 @@
 batch(step) is a pure function of (seed, step) — the pipeline cursor IS
 the step counter, so checkpoint/restart resumes bit-identically with no
 separate data state to save. The tokens are the JAX package's numpy
-`host_batch` (its `batch()` draws from jax.random, which torch cannot
+`host_batch` (its `batch()` draws with jax.random, which torch cannot
 reproduce), moved to the pipeline's device.
 """
 from __future__ import annotations

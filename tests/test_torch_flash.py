@@ -22,7 +22,8 @@ import torch
 from repro.kernels.flash_attention.ops import flash_attention as ref_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref as ref_oracle
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                     max_row_rel_err)
 from _torch_threads import few_threads  # noqa: F401  (autouse)
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -54,6 +55,8 @@ def _f32(x):
     (1, 128, 128, 4, 4, 128),
     (1, 512, 512, 2, 2, 64),
     (1, 128, 128, 4, 4, 112),       # zamba2-7b's shared block's head dim
+    (2, 77, 256, 4, 4, 64),         # cross-attention: odd queries, more keys
+    (1, 128, 384, 4, 2, 64),        # the same under GQA
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -169,6 +172,33 @@ def test_tensor_core_numerics_match_plain_at_odd_lengths(B, Sq, Sk, H, Hkv,
     got = _emulate_tensor_core_f1(q, k, v, causal)
     want = flash_attention_ref(q, k, v, causal=causal)
     np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-2, rtol=2e-2)
+
+
+def test_max_row_rel_err_holds_each_row_to_its_own_scale():
+    """An error of 5 % on a causal output's last row, whose values are
+    far below the first row's, stays inside an absolute bound of 2e-2
+    and reads 0.05 row by row; rows equal to the reference read 0."""
+    _, (q, k, v) = _inputs(6, 1, 512, 512, 2, 2, 64, "float32")
+    want = flash_attention_ref(q, k, v, causal=True)
+    got = want.clone()
+    got[0, -1, 0] += 0.05 * want[0, -1, 0].abs().max()
+    assert float((got - want).abs().max()) < 2e-2
+    assert max_row_rel_err(got, want) == pytest.approx(0.05, rel=1e-4)
+    assert max_row_rel_err(want, want) == 0.0
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd,causal", [
+    (1, 1024, 1024, 2, 1, 64, True),    # late causal rows over ~1000 keys
+    (1, 128, 1024, 2, 2, 64, False),    # a cross-attention over 1024 keys
+])
+def test_tensor_core_design_rows_within_their_own_scale(B, Sq, Sk, H, Hkv,
+                                                        hd, causal):
+    """The tensor-core design's bf16 output holds every row within 2e-2 of
+    that row's largest magnitude (`chip_smoke.py`'s per-row bound)."""
+    _, (q, k, v) = _inputs(7, B, Sq, Sk, H, Hkv, hd, "bfloat16")
+    got = _emulate_tensor_core_f1(q, k, v, causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert max_row_rel_err(got, want) <= 2e-2
 
 
 @pytest.mark.parametrize("Sq,Sk", [(1, 1), (5, 3), (3, 5), (300, 200),
@@ -292,7 +322,9 @@ def cuda():
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd", [
     (4, 512, 512, 12, 12, 64), (2, 128, 640, 28, 4, 128),
     (1, 77, 77, 4, 2, 16), (1, 200, 100, 4, 4, 64),
-    (4, 512, 512, 32, 32, 112), (2, 77, 200, 8, 2, 112)])
+    (4, 512, 512, 32, 32, 112), (2, 77, 200, 8, 2, 112),
+    (4, 1024, 1024, 16, 16, 64), (4, 512, 1024, 16, 16, 64),
+    (4, 77, 1024, 16, 16, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_f1_matches_plain_version(cuda, B, Sq, Sk, H, Hkv, hd, causal,
@@ -325,6 +357,25 @@ def test_f1_tensor_cores_match_plain_version(cuda, B, Sq, Sk, H, Hkv, hd,
     assert got.is_contiguous() and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd,causal", [
+    (2, 3072, 3072, 56, 8, 128, True),       # llava-next-34b's prefill
+    (1, 2048, 2048, 16, 16, 64, True),
+    (4, 1024, 1024, 16, 16, 64, False),      # seamless's encoder
+    (4, 512, 1024, 16, 16, 64, False)])      # and its cross-attention
+def test_f1_bf16_rows_within_their_own_scale(cuda, B, Sq, Sk, H, Hkv, hd,
+                                             causal):
+    """F1's bf16 output holds every row (one query of one head) within
+    2e-2 of that row's largest magnitude, where the late rows of a long
+    causal prompt and the rows over 1024 keys are far below 1."""
+    _, (q, k, v) = _inputs(5, B, Sq, Sk, H, Hkv, hd, "bfloat16")
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert bool(torch.isfinite(got).all())
+    assert max_row_rel_err(got, want) <= 2e-2
 
 
 @pytest.mark.gpu

@@ -363,22 +363,32 @@ def test_decode_matches_forward(attn_impl):
 
 @pytest.mark.parametrize("family", ["moe", "encdec", "vlm"])
 def test_unported_families_still_raise(family):
-    """encdec and vlm are not ported and raise. The moe case keeps its
-    node id now that the family is ported: `Model(cfg).init` succeeds and
-    the stack holds the moe leaves (the family's parity is in
-    `tests/test_torch_moe.py`)."""
+    """Every family is ported now, and each case keeps its node id:
+    `Model(cfg).init` succeeds and the tree holds the family's own leaves
+    (moe's routed experts; encdec's encoder stack, cross-attention,
+    `frontend_proj` and `ln_enc`; vlm's `frontend_proj` beside the dense
+    stack). The families' parity is in `tests/test_torch_moe.py`,
+    `tests/test_torch_encdec.py` and `tests/test_torch_vlm.py`."""
     arch = {"moe": "olmoe-1b-7b", "encdec": "seamless-m4t-medium",
             "vlm": "llava-next-34b"}[family]
     cfg = reduced(get_config(arch))
     assert cfg.family == family
+    params = Model(cfg).init(torch.Generator().manual_seed(0))
+    layers = params["stack"]["layers"]
     if family == "moe":
-        params = Model(cfg).init(torch.Generator().manual_seed(0))
-        assert sorted(params["stack"]["layers"]["moe"]) == \
-            ["router", "wi_gate", "wi_up", "wo"]
-        assert "mlp" not in params["stack"]["layers"]
+        assert sorted(layers["moe"]) == ["router", "wi_gate", "wi_up", "wo"]
+        assert "mlp" not in layers
         return
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Model(cfg).init(torch.Generator().manual_seed(0))
+    assert params["frontend_proj"]["w"].shape == (cfg.d_model, cfg.d_model)
+    if family == "encdec":
+        assert sorted(layers) == ["attn", "cross", "ln1", "ln2", "ln_x",
+                                  "mlp"]
+        assert params["stack"]["enc_layers"]["attn"]["wq"].shape[0] == \
+            cfg.n_enc_layers
+        assert "ln_enc" in params
+    else:
+        assert sorted(layers) == ["attn", "ln1", "ln2", "mlp"]
+        assert "ln_enc" not in params
 
 
 # ------------------------------------- faults of the reference's prefill
