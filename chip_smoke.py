@@ -69,6 +69,15 @@ Phases (any failure exits non-zero):
      through the API: the shrink strategy with no spare and a node fault
      (full saves, K2), and a slow rank drained by mitigation — each
      bit-identical to its fault-free twin;
+  4c. [sharded-train] phase 4's reinit run through the API, once without
+     a mesh and twice under a device mesh: a world-1 NCCL group, a (1,)
+     `data` mesh and ShardingRules(batch="data", embed="data"), so the
+     state is DTensors placed by the rules, each step runs in a constraint
+     scope and the file tier gathers each leaf before K2 digests it;
+     fault-free and with the same process failure, all three ending on
+     the unsharded reinit run's digests bit for bit, each run's median
+     step time printed (one card holds one NCCL rank: the multi-rank ring
+     of shards is tested on the CPU, tests/test_torch_sharding.py);
   5. a sparse-dirt checkpoint: FileCheckpointer(delta_every=4) on the
      full paper-demo train state with a 5 % window of every leaf changed
      between saves, so the delta save gathers dirty tiles on the card;
@@ -94,6 +103,15 @@ Phases (any failure exits non-zero):
      snapshot/restore in the middle (bit-identical transcripts and state),
      a profiled decode step and prefill call (host and device time, the
      top kernels), and prefill logits of `pallas` against `chunked`;
+  6b. [sharded-serve] the same model, parameters and requests through
+     the sharded engine: a world-1 NCCL group, a (1, 1) (data, model)
+     mesh and the pod_serve rules, so the parameters and the KV cache are
+     DTensors (the cache's placements printed) and F1 runs through
+     `sharding.partition.local_call` on each rank's lanes and heads. The
+     transcripts must be phase 6's token for token, straight and through
+     a snapshot/restore, with F1 launched once per layer and prefill
+     call (84); prints TTFT, decode tokens/s and a decode step's host and
+     device time beside the unsharded engine's at the same point;
   7. [serve-cluster] the `fast` cells of the serving catalog under both
      reinit and replica at paper-demo full width, each lossless against
      its fault-free run;
@@ -155,18 +173,19 @@ Phases (any failure exits non-zero):
      profiles as in 8d (both phases run one skeleton, `phase_serve_api`);
   9. the kernel report. Launches are counted per path: the counts are
      set to 0 just before each path is driven and read just after it.
-     K2 must launch on the full-save runs (the shrink and gray runs
-     included), K1 on the delta-cadence runs and in every runtime run,
+     K2 must launch on the full-save runs (the shrink, gray and sharded
+     runs included), K1 on the delta-cadence runs and in every runtime run,
      K3 (which training never reaches: AdamW dirties every tile) on the
-     sparse-dirt saves, F1 on both dense serving paths, the zamba2-7b,
+     sparse-dirt saves, F1 on both dense serving paths and the sharded
+     one, the zamba2-7b,
      olmoe-1b-7b, seamless-m4t-medium and llava-next-34b ones and S1 on
      the falcon-mamba-7b one; every shape, dtype and mask F1 was given
      must be one that phase 3 checked, and every shape S1 was given one
      that phase 3b checked. F1's entry on the kernels line carries, beside
      its main row, the rows of head dim 112, MHA head dim 128, the hd-64
      non-causal encoder and cross shapes and llava-next-34b's S 3072, and
-     `launches_by_path` gives each path's launches, the two new ones
-     included.
+     `launches_by_path` gives each path's launches, `sharded-train` and
+     `sharded-serve` included.
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -918,11 +937,38 @@ def moe_routing(torch, model, params, prompts, tag: str) -> None:
           f"KV caches {tuple(a[1]['k'].shape)} bit-identical")
 
 
-def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
+def straight_run(tag: str, engine):
+    """Serve `engine(sink)`'s requests straight through and print the
+    time to first token and the decode rate: (the engine, {rid: out})."""
+    # token delivery times (the sink runs after each step's argmax has
+    # come back to the host, so they are the card's times too)
+    first_at, n_tok = {}, [0]
+
+    def sink(rid, idx, tok):
+        n_tok[0] += 1
+        first_at.setdefault(rid, time.monotonic() - t0)
+
+    t0 = time.monotonic()
+    eng = engine(sink)
+    out = {r.rid: r.out for r in eng.run_until_drained()}
+    wall = time.monotonic() - t0
+    ttft = sorted(first_at.values())
+    print(f"[{tag}] straight run: {len(out)} requests, {n_tok[0]} tokens "
+          f"in {wall:.2f} s; time to first token {ttft[0]:.3f} s (first "
+          f"request) to {ttft[-1]:.3f} s (last, queued behind the first "
+          f"wave); {(n_tok[0] - len(out)) / (wall - ttft[0]):.1f} decode "
+          f"tokens/s after the first token")
+    return eng, out
+
+
+def phase_serve(torch, arch: str, kernel: str, recording, tag: str,
+                then=None) -> dict:
     """Phases 6, 8, 8b and 8c: `arch` at full width and depth, served with
     `--attn-impl pallas`, where `kernel` must launch once per layer (per
     group, in a hybrid model) and prefill call. Returns the launches of
-    the serve CLI's run; `recording` records the kernel's cases on it."""
+    the serve CLI's run; `recording` records the kernel's cases on it.
+    `then(model, params, prompts, transcripts)` runs on the API's model
+    and parameters before they are freed."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models.model import Model
@@ -1000,24 +1046,7 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
             eng.submit(Request(rid=rid, prompt=p, max_new_tokens=32))
         return eng
 
-    # token delivery times (the sink runs after each step's argmax has
-    # come back to the host, so they are the card's times too)
-    first_at, n_tok = {}, [0]
-
-    def sink(rid, idx, tok):
-        n_tok[0] += 1
-        first_at.setdefault(rid, time.monotonic() - t0)
-
-    t0 = time.monotonic()
-    straight = engine(sink)
-    want = {r.rid: r.out for r in straight.run_until_drained()}
-    wall = time.monotonic() - t0
-    ttft = sorted(first_at.values())
-    print(f"[{tag}] straight run: {len(want)} requests, {n_tok[0]} tokens "
-          f"in {wall:.2f} s; time to first token {ttft[0]:.3f} s (first "
-          f"request) to {ttft[-1]:.3f} s (last, queued behind the first "
-          f"wave); {(n_tok[0] - len(want)) / (wall - ttft[0]):.1f} decode "
-          f"tokens/s after the first token")
+    straight, want = straight_run(tag, engine)
     first = engine()
     for _ in range(8):
         first.step()
@@ -1046,6 +1075,8 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
           f"run; {len({tuple(v) for v in want.values()})} distinct "
           f"transcripts")
     del straight, first, second, snap
+    if then is not None:
+        then(model, params, prompts, want)
 
     def prefill(m, toks):
         """(last logits, wall ms of the second of two calls: the first
@@ -1106,6 +1137,75 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sharded_serve(torch, model, params, prompts, want: dict,
+                        recording) -> dict:
+    """Phase 6b [sharded-serve]: [serve]'s model, parameters and requests
+    served by the sharded engine: a world-1 NCCL group, a (1, 1) (data,
+    model) mesh and the pod_serve rules, so the parameters and the KV
+    cache are DTensors and F1 runs through `local_call` in the prefill.
+    The transcripts must be [serve]'s (`want`) token for token, with F1
+    launched once per layer and prefill call, and again after a
+    snapshot/restore in the middle. Prints the cache's placements, the
+    time to first token and decode rate, and a decode step's host and
+    device time beside the unsharded engine's at the same point. Returns
+    the straight run's kernel launches."""
+    from repro_torch.launch.mesh import make_host_mesh, process_group
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.sharding.rules import PRESETS
+    tag = "sharded-serve"
+    with process_group():
+        mesh = make_host_mesh((1, 1), ("data", "model"))
+
+        def engine(sink=None, sharded=True):
+            eng = ServeEngine(model, params, n_slots=4, max_len=1024,
+                              sink=sink,
+                              **(dict(mesh=mesh, rules=PRESETS["pod_serve"])
+                                 if sharded else {}))
+            for rid, p in enumerate(prompts):
+                eng.submit(Request(rid=rid, prompt=p, max_new_tokens=32))
+            return eng
+
+        reset_launches()
+        with recording:
+            eng, got = straight_run(tag, engine)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        k = eng.state["k"]
+        print(f"[{tag}] mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+              f"pod_serve: KV cache {tuple(k.shape)} {k.dtype} placed "
+              f"{k.placements}; embedding table placed "
+              f"{eng.params['embedding']['table'].placements}; "
+              f"{eng.prefill_calls} prefill calls; launches {launches}")
+        want_f1 = kernel_layers(model.cfg) * eng.prefill_calls
+        if got != want:
+            fail(f"{tag}: the sharded engine's transcripts differ from "
+                 f"[serve]'s")
+        if launches["flash_attention"] != want_f1:
+            fail(f"{tag}: F1 launched {launches['flash_attention']} times, "
+                 f"expected {want_f1}")
+        first = engine()
+        for _ in range(8):
+            first.step()
+        second = engine()
+        second.restore(first.snapshot())
+        if {r.rid: r.out for r in second.run_until_drained()} != want:
+            fail(f"{tag}: a snapshot/restore in the middle changed the "
+                 f"transcripts")
+        print(f"[{tag}] transcripts of {len(got)} requests equal [serve]'s "
+              f"token for token, straight and through a snapshot/restore "
+              f"at step 8; F1 launched {want_f1} times, each through "
+              f"local_call")
+        for name, sharded in (("unsharded", False), ("sharded", True)):
+            e = engine(sharded=sharded)
+            for _ in range(8):
+                e.step()
+            print_profile(torch, tag, f"4 decode steps (4 slots), "
+                          f"{name} engine", "step", 4, e.step)
+            del e
+        del eng, first, second
     return launches
 
 
@@ -1428,9 +1528,10 @@ def final_digests(ckpt_dir: str) -> dict:
             "digests": {k: m["digest"] for k, m in man.leaves.items()}}
 
 
-def phase_train(torch, ops) -> dict:
+def phase_train(torch, ops) -> tuple[dict, dict]:
     """Phase 3: the main path at full width, each fault run vs its twin.
-    Returns {run name: kernel launches over its fault and twin runs}."""
+    Returns ({run name: kernel launches over its fault and twin runs},
+    {run name: the fault-free twin's final checkpoint digests})."""
     from repro_torch.launch.train import main
     runs = {   # name: (checkpoint and strategy flags, fault flags)
         "reinit-process-full": (["--strategy", "reinit"],
@@ -1438,7 +1539,7 @@ def phase_train(torch, ops) -> dict:
         "cr-node-delta4": (["--strategy", "cr", "--ckpt-delta-every", "4"],
                            ["--fail-kind", "node"]),
     }
-    launches = {}
+    launches, finals = {}, {}
     for name, (flags, fault) in runs.items():
         out = {}
         launches[name] = {k: 0 for k in launch_counts()}
@@ -1470,9 +1571,83 @@ def phase_train(torch, ops) -> dict:
             shutil.rmtree(d)
         if out[False] != out[True]:
             fail(f"{name}: final state differs from the fault-free twin")
+        finals[name] = out[True]
         print(f"[train] {name}: final state bit-identical to its twin "
               f"({len(out[True]['digests'])} leaves); launches "
               f"{launches[name]}")
+    return launches, finals
+
+
+def phase_sharded_train(torch, plain: dict) -> dict:
+    """Phase 4c [sharded-train]: the reinit run of phase 4 through the
+    API, once without a mesh and twice under a device mesh: a world-1
+    NCCL group, a (1,) `data` mesh and ShardingRules(batch="data",
+    embed="data"), so the state is DTensors placed by the rules, each
+    step runs in a constraint scope and the file tier gathers every leaf
+    before K2 digests it. Under the mesh fault-free and with the same
+    process failure; all three final states must be the unsharded CLI
+    run's (`plain`) bit for bit. Prints each run's median step time.
+    Returns the kernel launches of the two sharded runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import FailureType, FaultInjector
+    from repro_torch.launch.mesh import make_host_mesh, process_group
+    from repro_torch.models.model import Model
+    from repro_torch.sharding.rules import ShardingRules
+    from repro_torch.train import (AdamWConfig, TokenPipeline, TrainConfig,
+                                   Trainer)
+    cfg = get_config("paper-demo")
+    rules = ShardingRules(batch="data", embed="data")
+    launches = {k: 0 for k in launch_counts()}
+    with process_group():
+        mesh = make_host_mesh((1,), ("data",))
+        for tag, sharded, fault in (("unsharded", False, False),
+                                    ("sharded", True, False),
+                                    ("sharded-fault", True, True)):
+            d = os.path.join(WORK, f"sharded-train-{tag}")
+            inj = FaultInjector(n_ranks=8, n_steps=STEPS,
+                                kind=FailureType.PROCESS, seed=0) \
+                if fault else None
+            tr = Trainer(
+                Model(cfg), TokenPipeline(cfg.vocab_size, 8, 256, seed=0),
+                AdamWConfig(total_steps=STEPS,
+                            warmup_steps=max(STEPS // 10, 1)),
+                TrainConfig(total_steps=STEPS, ckpt_dir=d, strategy="reinit",
+                            seed=0, log_every=10),
+                **(dict(mesh=mesh, rules=rules) if sharded else {}),
+                injector=inj)
+            t0 = time.monotonic()
+            reset_launches()
+            res = tr.run()
+            torch.cuda.synchronize()
+            if sharded:
+                for k, n in launch_counts().items():
+                    launches[k] += n
+            wall = time.monotonic() - t0
+            rollbacks = [r.rollback_step for r in res["reports"]]
+            steps = sorted(l.seconds for l in tr.logs)
+            table = tr.state["params"]["embedding"]["table"]
+            where = (f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+                     f"embedding table placed {table.placements}"
+                     if sharded else "no mesh")
+            print(f"[sharded-train] {tag}: {wall:.1f} s, {where}, median "
+                  f"step {steps[len(steps) // 2] * 1e3:.1f} ms (min "
+                  f"{steps[0] * 1e3:.1f}), first_loss {res['losses'][0]:.4f} "
+                  f"last_loss {res['losses'][-1]:.4f}, rollbacks "
+                  f"{rollbacks}")
+            if res["final_step"] != STEPS:
+                fail(f"sharded-train {tag}: final_step {res['final_step']}")
+            if rollbacks != ([inj.fail_step] if fault else []):
+                fail(f"sharded-train {tag}: rollbacks {rollbacks}")
+            got = final_digests(d)
+            shutil.rmtree(d)
+            if got != plain:
+                diff = sorted(k for k in plain["digests"]
+                              if plain["digests"][k] != got["digests"].get(k))
+                fail(f"sharded-train {tag}: the final state differs from "
+                     f"the unsharded [train] reinit run's in {diff}")
+    print(f"[sharded-train] final state of all three runs bit-identical to "
+          f"the unsharded [train] reinit run's ({len(plain['digests'])} "
+          f"leaves); launches of the sharded runs {launches}")
     return launches
 
 
@@ -1887,7 +2062,9 @@ def main() -> int:
     rows["selective_scan"], scan_checked = phase_scan(torch, per_exp)
     phase_device_times(torch, ops)
 
-    by_path = phase_train(torch, ops)
+    by_path, finals = phase_train(torch, ops)
+    by_path["sharded-train"] = phase_sharded_train(
+        torch, finals["reinit-process-full"])
     by_path.update(phase_train_elastic(torch))
     by_path["sparse-dirt"] = phase_sparse_dirt(torch, ops)
     gc.collect()
@@ -1896,9 +2073,14 @@ def main() -> int:
     by_path.update(runtime)
     shutil.rmtree(WORK, ignore_errors=True)
     flash_seen: set = set()
+
+    def sharded_serve(*args):
+        by_path["sharded-serve"] = phase_sharded_serve(
+            torch, *args, recording_flash_shapes(flash_seen))
+
     by_path["serve-qwen2-7b"] = phase_serve(
         torch, "qwen2-7b", "flash_attention",
-        recording_flash_shapes(flash_seen), "serve")
+        recording_flash_shapes(flash_seen), "serve", then=sharded_serve)
     by_path["serve-cluster-paper-demo"] = phase_serve_cluster(torch,
                                                               flash_seen)
     scan_seen: set = set()
@@ -1927,11 +2109,11 @@ def main() -> int:
     print(f"[scan] every case S1 ran on the serving path was checked: "
           f"{sorted(scan_seen)}")
     # the path each kernel must launch on
-    required = {"checksum_words": ["reinit-process-full", "shrink-node-full",
-                                   "gray-slow-drain"],
+    required = {"checksum_words": ["reinit-process-full", "sharded-train",
+                                   "shrink-node-full", "gray-slow-drain"],
                 "tile_checksums": ["cr-node-delta4", *runtime],
                 "gather_tiles": ["sparse-dirt"],
-                "flash_attention": ["serve-qwen2-7b",
+                "flash_attention": ["serve-qwen2-7b", "sharded-serve",
                                     "serve-cluster-paper-demo",
                                     "serve-zamba2-7b", "serve-olmoe-1b-7b",
                                     "serve-seamless-m4t-medium",

@@ -90,6 +90,7 @@ from repro_torch.device import HostCopy, host_leaf
 from repro_torch.kernels.checksum import ops
 from repro_torch.kernels.checksum.ref import TILE_BYTES, scalar_from_tiles
 from repro_torch.scenarios import hooks
+from repro_torch.sharding.partition import barrier, gather_tree
 
 from . import serde
 from .manifest import (Manifest, digest_from_checksum, flatten_leaves,
@@ -115,6 +116,12 @@ def _host(v, copy: "HostCopy | None"):
     return copy.result() if copy is not None else host_leaf(v)
 
 
+def _origin(mesh) -> bool:
+    """Whether this process is the rank at the mesh's origin."""
+    import torch.distributed as dist
+    return int(mesh.mesh.flatten()[0]) == dist.get_rank()
+
+
 class _LeafMeta:
     """Shape/dtype stand-in for a leaf whose bytes never reached the
     host (gathered delta saves build manifests from these)."""
@@ -132,7 +139,7 @@ class FileCheckpointer:
                  io_workers: Optional[int] = None,
                  delta_every: int = 0, delta_max_dirty: float = 0.5,
                  gather: str = "auto", rebase_after: int = 0,
-                 rebase_max_bytes: int = 0):
+                 rebase_max_bytes: int = 0, mesh=None):
         if fmt not in ("bin", "npz"):
             raise ValueError(f"fmt must be 'bin' or 'npz', got {fmt!r}")
         if gather not in ("auto", "on", "off"):
@@ -170,6 +177,10 @@ class FileCheckpointer:
         self._error: Optional[BaseException] = None
         self._live_tmps: set[str] = set()   # guarded-by: _lock
         self._lock = threading.Lock()
+        # a mesh-distributed state: every rank of `mesh` saves and waits,
+        # the rank at the mesh's origin writes (see save)
+        self.mesh = mesh
+        self._writes = mesh is None or _origin(mesh)
         os.makedirs(directory, exist_ok=True)
 
     @property
@@ -304,8 +315,28 @@ class FileCheckpointer:
         full bytes will be needed; serialization and IO run on the
         writer thread. Up to one snapshot queues behind the one draining
         (double buffering); further saves block on the oldest.
+
+        A state of DTensor leaves (with `mesh` set) is saved by every rank
+        of the mesh: each assembles each leaf's global value (a
+        collective), the rank at the mesh's origin digests and writes it
+        as above, and a sync save returns on every rank once it has
+        committed (an async one, at `wait`). The files are those of the
+        same values saved without a mesh, byte for byte.
         """
         self._raise_pending_error()
+        if self.mesh is not None:
+            state = gather_tree(state)
+            if not self._writes:
+                if not async_:
+                    barrier(self.mesh)
+                return
+            self._save(step, state, async_, extra)
+            if not async_:
+                barrier(self.mesh)
+            return
+        self._save(step, state, async_, extra)
+
+    def _save(self, step: int, state: Any, async_: bool, extra):
         if self.fmt == "npz":
             # legacy comparison path: host materialize + sha256
             self._drain_writes()
@@ -684,11 +715,16 @@ class FileCheckpointer:
 
     def wait(self):
         """Drain the async writer queue and any in-flight background
-        re-base; re-raise any background write failure."""
-        self._drain_writes()
-        while self._rebase_pending:
-            self._rebase_pending.popleft().result()
-        self._raise_pending_error()
+        re-base; re-raise any background write failure. With a mesh,
+        every rank calls it and it returns once the writer has drained."""
+        try:
+            self._drain_writes()
+            while self._rebase_pending:
+                self._rebase_pending.popleft().result()
+            self._raise_pending_error()
+        finally:
+            if self.mesh is not None:
+                barrier(self.mesh)
 
     def close(self):
         """Drain pending writes and release the IO thread pools. The

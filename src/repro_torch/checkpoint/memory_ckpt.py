@@ -3,10 +3,13 @@
 Two faces of the same paper mechanism (local copy + copy on the cyclically
 next rank):
 
-1. `buddy_exchange` / `restore_from_buddy` — the SPMD form, in which every
-   shard of the state moves one step along the data axis of a device
-   mesh. The port has no mesh yet (ROADMAP queue A, item 7: sharding and a
-   multi-GPU buddy exchange through `torch.distributed`), so both raise.
+1. `buddy_exchange` — the SPMD form: every shard of a mesh-distributed
+   state (DTensor leaves placed by the sharding rules) moves one step
+   along the data axis, so each rank's device holds its own shard *and*
+   its left neighbour's. It is a ring of point-to-point sends over the
+   mesh dim's process group (`batch_isend_irecv`): NCCL between cards,
+   gloo on the CPU. Valid for single-shard failures (Table 2 of the
+   paper): a lost rank's state is recovered from its right neighbour.
 
 2. `BuddyStore` — the process-runtime form: a rank stores checkpoint bytes
    locally and pushes a copy to rank (r+1) % world. Re-spawned ranks pull
@@ -19,19 +22,65 @@ import os
 import threading
 from typing import Any, Callable, Dict, Optional
 
+from repro_torch.device import is_dtensor
+from repro_torch.tree import tree_map
+
+
+def _ring(state, mesh, rules, axis: str, step: int):
+    """Each leaf sharded on mesh axis `axis` with its shard moved `step`
+    (+1 or -1) places around that axis's ring; other leaves as they are.
+    Every leaf must be a DTensor placed as the rules place it."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.sharding.partition import state_shardings
+
+    dim = list(mesh.mesh_dim_names).index(axis)
+    n = mesh.size(dim)
+    group = mesh.get_group(axis)
+    me = mesh.get_local_rank(axis)
+    to = dist.get_global_rank(group, (me + step) % n)
+    frm = dist.get_global_rank(group, (me - step) % n)
+
+    def move(leaf, sharding):
+        want = sharding.placements
+        if not is_dtensor(leaf) or tuple(leaf.placements) != want:
+            got = leaf.placements if is_dtensor(leaf) else "a plain tensor"
+            raise ValueError(f"a state leaf placed as {got}, not as the "
+                             f"rules place it ({want})")
+        if not isinstance(want[dim], Shard):
+            return leaf              # replicated over the axis: redundant
+        local = leaf.to_local().contiguous()
+        recv = torch.empty_like(local)
+        for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, local, to),
+                                         dist.P2POp(dist.irecv, recv, frm)]):
+            w.wait()
+        return DTensor.from_local(recv, mesh, want, run_check=False,
+                                  shape=leaf.shape, stride=leaf.stride())
+
+    return tree_map(move, state, state_shardings(mesh, state, rules))
+
 
 def buddy_exchange(state, mesh, rules, axis: str = "data"):
-    """The buddy copy of a mesh-sharded state: not ported yet."""
-    raise NotImplementedError(
-        "buddy_exchange needs a device mesh, which repro_torch does not "
-        "have yet: ROADMAP queue A, item 7 (sharding)")
+    """Returns the buddy copy of `state`: each data-shard moved one step
+    (cyclically, rank r's shard to rank r+1) along `axis`. Leaves not
+    sharded on `axis` come back unchanged (they are already replicated =
+    already redundant); on an axis of one the state comes back as it
+    is. Every rank of the mesh calls it."""
+    if mesh.size(list(mesh.mesh_dim_names).index(axis)) == 1:
+        return state
+    return _ring(state, mesh, rules, axis, +1)
 
 
 def restore_from_buddy(buddy_state, mesh, rules, axis: str = "data"):
-    """Inverse of `buddy_exchange`: not ported yet."""
-    raise NotImplementedError(
-        "restore_from_buddy needs a device mesh, which repro_torch does "
-        "not have yet: ROADMAP queue A, item 7 (sharding)")
+    """Inverse shift (rank r+1's copy back to rank r): rebuild the
+    original state from buddy copies. After a shard loss, the survivor
+    copies plus the buddy ring reconstruct every shard (single-failure
+    guarantee, as in the paper)."""
+    if mesh.size(list(mesh.mesh_dim_names).index(axis)) == 1:
+        return buddy_state
+    return _ring(buddy_state, mesh, rules, axis, -1)
 
 
 class _Spilled:

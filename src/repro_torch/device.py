@@ -14,6 +14,11 @@ Moving leaves between host and device: `to_device` places a host leaf
 (numpy, bfloat16 bits kept, or a CPU tensor) on a device as a tensor of
 its own; `host_leaf` brings a leaf back; `HostCopy` starts a device
 leaf's copy into pinned host memory without waiting for it.
+
+`is_dtensor` tells a mesh-distributed tensor from a plain one without
+importing torch.distributed.tensor for a plain one; `require_local` is
+how a kernel wrapper refuses a DTensor (its pointer is one shard's, its
+shape the whole tensor's).
 """
 from __future__ import annotations
 
@@ -31,6 +36,24 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' "
             "(--device cpu) to run on the CPU")
     return dev
+
+
+def is_dtensor(t) -> bool:
+    """Whether `t` is a DTensor (a tensor distributed over a mesh)."""
+    if type(t) is torch.Tensor or not isinstance(t, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def require_local(what: str, *ts) -> None:
+    """TypeError if any of `ts` is a DTensor: `what` launches a kernel on
+    a tensor's pointer and element count, which for a DTensor are one
+    shard's and the whole tensor's."""
+    if any(is_dtensor(t) for t in ts):
+        raise TypeError(
+            f"{what} takes plain tensors; a DTensor reaches a kernel only "
+            f"through sharding.partition.local_call, one shard at a time")
 
 
 def set_deterministic() -> None:

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...device import require_local
 from ._build import KERNELS
 from .ref import (MIX_C, TILE_BYTES, TILE_WORDS, checksum_words_ref, n_tiles,
                   tile_checksums_ref)
@@ -44,7 +45,8 @@ def reset_launches() -> None:
 def byte_stream(x: torch.Tensor) -> torch.Tensor:
     """Flat uint8 view of a tensor's bytes (copies only if it is not
     contiguous). Raises TypeError for an itemsize the checksum does not
-    define, before anything is launched."""
+    define, before anything is launched, and for a DTensor."""
+    require_local("the checksum kernels", x)
     if x.element_size() not in (1, 2, 4, 8):
         raise TypeError(f"unsupported itemsize {x.element_size()} "
                         f"for dtype {x.dtype}")
@@ -111,6 +113,7 @@ def _aligned(b: torch.Tensor) -> torch.Tensor:
     """Check what the kernels take — a non-empty, contiguous, 1-D uint8
     CUDA stream — and return it 16-byte aligned (the kernels read 16-byte
     vectors; a fresh allocation is aligned)."""
+    require_local("the checksum kernels", b)
     if not (b.is_cuda and b.dtype == torch.uint8 and b.dim() == 1
             and b.is_contiguous() and b.numel() > 0):
         raise ValueError("the checksum kernels take a non-empty contiguous "
@@ -156,6 +159,7 @@ def gather_tiles_kernel(b: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     `gather_tiles_device` has checked that `b` is what `_aligned` returns
     and that `idx` is contiguous int32 on b's device, each index below the
     stream's tile count."""
+    require_local("K3", b, idx)
     k = idx.numel()
     dev = b.get_device()
     out = torch.empty((k, TILE_WORDS), dtype=torch.int32, device=dev)

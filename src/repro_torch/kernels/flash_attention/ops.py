@@ -13,6 +13,13 @@
 Tensors on any other device raise. Both routes go through an autograd
 Function whose backward raises: the reference defines no VJP for its
 kernel, so the port does not silently drop attention from a gradient.
+
+DTensors (a model under a mesh) go through `sharding.partition.
+local_call`: each rank runs the route above on its own lanes and heads
+(batch over the batch axes, q heads over the heads axis, K/V heads by
+the kv_heads rule), with the K/V heads its q heads read. Attention is per
+(lane, head), so the local call is exact. The kernel entry points raise
+on a DTensor.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import math
 
 import torch
 
+from ...device import is_dtensor, require_local
 from ._build import KERNELS
 from .ref import flash_attention_ref
 
@@ -29,6 +37,10 @@ LAUNCHES = {"flash_attention": 0}
 #: head dims F1 is compiled for (see `rt_flash_attention` in the source);
 #: 112 is zamba2-7b's shared attention block (d_model 3584 / 32 heads)
 HEAD_DIMS = (16, 64, 112, 128)
+#: the logical axes of q and of k/v under a mesh: lanes over the batch
+#: axes, heads over the heads axis, K/V heads by the kv_heads rule
+Q_AXES = ("batch", None, "heads", None)
+KV_AXES = ("batch", None, "kv_heads", None)
 #: dtype -> F1's kernel: 0 the fp32 FMA kernel, 1 the bf16 tensor-core one
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -132,6 +144,7 @@ def flash_attention_bhsd_kernel(q: torch.Tensor, k: torch.Tensor,
                                 n_q_heads: int) -> torch.Tensor:
     """F1 on the flattened layout: q (B*H, Sq, hd), k/v (B*Hkv, Sk, hd),
     float32 or bfloat16 CUDA tensors -> (B*H, Sq, hd) in q's dtype."""
+    require_local("F1", q, k, v)
     BH, Sq, hd = q.shape
     BHkv, Sk = k.shape[0], k.shape[1]
     H = n_q_heads
@@ -151,6 +164,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool) -> torch.Tensor:
     """F1 in the model layout (B,Sq,H,hd) x (B,Sk,Hkv,hd) -> (B,Sq,H,hd),
     the output contiguous so that merging its heads is a view."""
+    require_local("F1", q, k, v)
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     _check(q, k, v, B, H, Hkv, Sk, hd)
@@ -189,4 +203,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or k.shape[2] == 0 or q.shape[2] % k.shape[2]:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
+    if is_dtensor(q):
+        from ...sharding.partition import local_call
+        return local_call(
+            lambda q, k, v, *, specs, coord: _local(q, k, v, causal, specs,
+                                                    coord),
+            (q, k, v), (Q_AXES, KV_AXES, KV_AXES), ((Q_AXES, q.shape),))
     return _ForwardOnly.apply(q, k, v, causal)
+
+
+def _head_range(n_local: int, axes, coord) -> tuple[int, int]:
+    """(first global head, global head count) of a local head dim split
+    over the mesh axes `axes` (None: not split), major to minor."""
+    if axes is None:
+        return 0, n_local
+    idx, n = 0, 1
+    for a in axes if isinstance(axes, tuple) else (axes,):
+        i, size = coord[a]
+        idx, n = idx * size + i, n * size
+    return idx * n_local, n_local * n
+
+
+def _local(q, k, v, causal: bool, specs, coord) -> torch.Tensor:
+    """One rank's attention: its q heads over the K/V heads they read."""
+    return _ForwardOnly.apply(q, *kv_for_heads(q, k, v, specs, coord),
+                              causal)
+
+
+def kv_for_heads(q, k, v, specs, coord):
+    """Inside `local_call`: the local K/V heads that the local q heads
+    (B, S, H_local, hd) read, (B, Sk, ., hd) each — a slice of the local
+    K/V heads, or each q head's own K/V head where the split of the
+    heads cuts a GQA group. `specs` are the fitted specs of q, k (, ...),
+    `coord` the rank's mesh coordinate."""
+    h0, H = _head_range(q.shape[2], specs[0][2], coord)
+    g0, Hkv = _head_range(k.shape[2], specs[1][2], coord)
+    rep, hl = H // Hkv, q.shape[2]
+    if h0 % rep == 0 and hl % rep == 0:
+        lo, hi = h0 // rep - g0, (h0 + hl) // rep - g0
+        idx = None
+    else:
+        idx = torch.arange(h0, h0 + hl, device=k.device) // rep - g0
+        lo, hi = int(idx.min()), int(idx.max()) + 1
+    if lo < 0 or hi > k.shape[2]:
+        raise ValueError(f"q heads [{h0}, {h0 + hl}) read K/V heads this "
+                         f"rank does not hold ([{g0}, {g0 + k.shape[2]}))")
+    if idx is None:
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    return k.index_select(2, idx), v.index_select(2, idx)

@@ -12,11 +12,17 @@ A (di, ds) and returns (y (b, S, di), h_final (b, di, ds) float32):
 Tensors on any other device raise. Both routes go through an autograd
 Function whose backward raises: the reference defines no VJP for its
 kernel, so the port does not silently drop the scan from a gradient.
+
+DTensors (a model under a mesh) go through `sharding.partition.
+local_call`: each rank scans its own lanes (batch axes) and channels
+(heads axis). The scan is per (lane, channel), so the local call is
+exact. The kernel entry point raises on a DTensor.
 """
 from __future__ import annotations
 
 import torch
 
+from ...device import is_dtensor, require_local
 from ._build import KERNELS
 from .ref import selective_scan_ref
 
@@ -37,6 +43,7 @@ def selective_scan_kernel(x: torch.Tensor, dt: torch.Tensor,
                           A: torch.Tensor):
     """S1 on float32 CUDA tensors of one device -> (y (b, S, di) float32,
     h_final (b, di, ds) float32), launched on the current stream."""
+    require_local("S1", x, dt, B, C, A)
     x, dt, B, C, A = (t.contiguous() for t in (x, dt, B, C, A))
     if not (x.is_cuda and all(t.device == x.device for t in (dt, B, C, A))):
         raise ValueError("selective_scan_kernel takes CUDA tensors on one "
@@ -95,4 +102,12 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         raise ValueError(f"bad shapes x {tuple(x.shape)} dt "
                          f"{tuple(dt.shape)} B {tuple(B.shape)} C "
                          f"{tuple(C.shape)} A {tuple(A.shape)}")
+    if is_dtensor(x):
+        from ...sharding.partition import local_call
+        xa, bca = ("batch", None, "heads"), ("batch", None, None)
+        b, _, di = x.shape
+        return local_call(
+            lambda *ts, specs, coord: _ForwardOnly.apply(*ts),
+            (x, dt, B, C, A), (xa, xa, bca, bca, ("heads", None)),
+            ((xa, x.shape), (("batch", "heads", None), (b, di, B.shape[2]))))
     return _ForwardOnly.apply(x, dt, B, C, A)

@@ -19,7 +19,9 @@ from typing import Any, Optional
 
 import torch
 
+from ..device import is_dtensor
 from ..kernels.flash_attention import ops as fa_ops
+from ..sharding.partition import local_offsets, shard_constraint
 from .config import ModelConfig
 from .layers import _init, apply_rope, rmsnorm, rmsnorm_init, torch_dtype
 
@@ -70,15 +72,23 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, compute_dtype):
     return (q, *_project_kv(p, x, cfg, positions, compute_dtype))
 
 
+# keep batch data-sharded and heads model-sharded through the attention
+# core under a mesh (K/V heads by the kv_heads rule, replicated in the
+# presets): the layouts F1's local call reads
+Q_AXES, KV_AXES = fa_ops.Q_AXES, fa_ops.KV_AXES
+
+
 def _project_q(p, x, cfg: ModelConfig, positions, compute_dtype):
-    return _heads(p, x.to(compute_dtype), cfg, "q", cfg.n_heads, positions,
-                  compute_dtype)
+    return shard_constraint(
+        _heads(p, x.to(compute_dtype), cfg, "q", cfg.n_heads, positions,
+               compute_dtype), *Q_AXES)
 
 
 def _project_kv(p, x, cfg: ModelConfig, positions, compute_dtype):
     xc = x.to(compute_dtype)
-    return tuple(_heads(p, xc, cfg, n, cfg.n_kv_heads, positions,
-                        compute_dtype) for n in ("k", "v"))
+    return tuple(shard_constraint(
+        _heads(p, xc, cfg, n, cfg.n_kv_heads, positions, compute_dtype),
+        *KV_AXES) for n in ("k", "v"))
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -125,8 +135,11 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset=0,
     denom = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
     for idx in range(n_chunks):
         sl = slice(idx * kv_chunk, (idx + 1) * kv_chunk)
-        kb = _repeat_kv(k[:, sl], n_rep).float()
-        vb = _repeat_kv(v[:, sl], n_rep).float()
+        # the GQA expansion happens before the heads constraint: K/V are
+        # replicated over the model axis, so each rank expands only its
+        # own q heads' slice
+        kb = shard_constraint(_repeat_kv(k[:, sl], n_rep).float(), *Q_AXES)
+        vb = shard_constraint(_repeat_kv(v[:, sl], n_rep).float(), *Q_AXES)
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kb) * scale
         if causal:
             kpos = idx * kv_chunk + torch.arange(kv_chunk,
@@ -159,7 +172,14 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions, compute_dtype)
-    o = _inner(impl, q, k, v, causal).reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return _out(p, _inner(impl, q, k, v, causal), cfg, compute_dtype)
+
+
+def _out(p, o: torch.Tensor, cfg: ModelConfig, compute_dtype):
+    """The output projection of attention's (B,S,H,hd) result."""
+    B, S = o.shape[:2]
+    o = shard_constraint(o.reshape(B, S, cfg.n_heads * cfg.head_dim),
+                         "batch", None, "heads")
     return o @ p["wo"].to(compute_dtype)
 
 
@@ -181,8 +201,7 @@ def attention_with_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions, compute_dtype)
-    o = _inner(impl, q, k, v, True).reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return o @ p["wo"].to(compute_dtype), k, v
+    return _out(p, _inner(impl, q, k, v, True), cfg, compute_dtype), k, v
 
 
 def cross_attention_with_kv(p: Params, x: torch.Tensor,
@@ -193,12 +212,9 @@ def cross_attention_with_kv(p: Params, x: torch.Tensor,
     non-causal and without RoPE: (out, k, v), k and v as
     `project_cross_kv` gives them, so an encdec prefill projects the cross
     K/V once for both the attention and the decode cache."""
-    B, S, _ = x.shape
     q = _project_q(p, x, cfg, None, compute_dtype)
     k, v = project_cross_kv(p, enc_out, cfg, compute_dtype)
-    o = _inner(impl, q, k, v, False).reshape(B, S,
-                                             cfg.n_heads * cfg.head_dim)
-    return o @ p["wo"].to(compute_dtype), k, v
+    return _out(p, _inner(impl, q, k, v, False), cfg, compute_dtype), k, v
 
 
 def project_cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig,
@@ -233,6 +249,31 @@ def cross_decode_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return o @ p["wo"].to(compute_dtype)
 
 
+def _write_local(cache, pos: torch.Tensor, new) -> None:
+    """Write new (B,1,Hkv,hd) into a mesh-sharded cache (B,Smax,Hkv,hd)
+    at the per-row positions pos (B,), in place. DTensor has no in-place
+    scatter into a dim split over the mesh (lanes over the batch axes,
+    positions over kv_seq), so each rank writes the rows and positions
+    its own shard holds, by its global offsets; `new` is first laid out
+    like the cache (its one position on every rank of the seq split)."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate() if isinstance(q, Shard) and q.dim == 1 else q
+          for q in cache.placements]
+    new_l = new.redistribute(cache.device_mesh, pl).to_local()[:, 0]
+    cl = cache.to_local()
+    ob, os_ = local_offsets(cache)[:2]
+    bl, sl = cl.shape[:2]
+    p = pos[ob:ob + bl].to(cl.device, torch.long) - os_
+    ok = (p >= 0) & (p < sl)
+    p = p.clamp(0, sl - 1)
+    rows = torch.arange(bl, device=cl.device)
+    # rows whose position lies in another rank's shard rewrite what
+    # they read
+    keep = cl[rows, p]
+    cl.index_put_((rows, p), torch.where(ok[:, None, None],
+                                         new_l.to(cl.dtype), keep))
+
+
 def decode_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
                      pos, compute_dtype=torch.bfloat16):
@@ -245,8 +286,7 @@ def decode_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     The new K/V are written into the caches in place (the counterpart of
     the reference's donated `.at[rows, pos].set` and
     `dynamic_update_slice`), which are also returned: (out (B,1,D),
-    cache_k, cache_v). GQA-grouped einsums: K/V heads are never
-    replicated to H.
+    cache_k, cache_v).
     """
     B = x.shape[0]
     pos = torch.as_tensor(pos)
@@ -258,7 +298,11 @@ def decode_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         pos = int(pos)
         positions = torch.full((B, 1), pos, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions, compute_dtype)
-    if per_row:
+    if is_dtensor(cache_k):
+        rows_pos = pos if per_row else torch.full((B,), pos, device=x.device)
+        _write_local(cache_k, rows_pos, k)
+        _write_local(cache_v, rows_pos, v)
+    elif per_row:
         # row i's K/V lands at its own position: one batched scatter
         rows = torch.arange(B, device=x.device)
         cache_k.index_put_((rows, pos), k[:, 0].to(cache_k.dtype))
@@ -266,21 +310,42 @@ def decode_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         cache_k[:, pos:pos + 1] = k.to(cache_k.dtype)
         cache_v[:, pos:pos + 1] = v.to(cache_v.dtype)
-    Smax = cache_k.shape[1]
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    rep = H // Hkv
-    qg = q.reshape(B, Hkv, rep, hd)                       # (B,g,r,hd)
+    if is_dtensor(q):
+        from ..sharding.partition import local_call
+        rows_pos = pos if per_row else torch.full((B,), pos, device=x.device)
+        o = local_call(
+            lambda q, ck, cv, ps, *, specs, coord: _decode_core(
+                q, *fa_ops.kv_for_heads(q, ck, cv, specs, coord), ps,
+                compute_dtype),
+            (q, cache_k, cache_v, rows_pos),
+            (Q_AXES, KV_AXES, KV_AXES, ("batch",)), ((Q_AXES, q.shape),))
+    else:
+        o = _decode_core(q, cache_k, cache_v, pos, compute_dtype)
+    return _out(p, o, cfg, compute_dtype), cache_k, cache_v
+
+
+def _decode_core(q, cache_k, cache_v, pos, compute_dtype) -> torch.Tensor:
+    """One new query a row over its cache: q (B,1,H,hd), caches
+    (B,Smax,Hkv,hd), pos a (B,) tensor or an int -> (B,1,H,hd).
+    GQA-grouped einsums: K/V heads are never replicated to H. Under a
+    mesh it runs through `local_call` on each rank's lanes and q heads
+    with each layer's whole sequence (the cache is split over kv_seq at
+    rest and gathered for the step; DTensor cannot flatten a split
+    dim into the einsum's batch): attention is per (lane, head), so it
+    is exact."""
+    B, _, H, hd = q.shape
+    Smax, Hkv = cache_k.shape[1], cache_k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, hd)                  # (B,g,r,hd)
     kf = cache_k.to(compute_dtype)                        # (B,S,g,hd)
     vf = cache_v.to(compute_dtype)
     s = torch.einsum("bgrd,bsgd->bgrs", qg, kf).float()
     s = s / math.sqrt(hd)
-    kpos = torch.arange(Smax, device=x.device)
-    if per_row:
+    kpos = torch.arange(Smax, device=q.device)
+    if isinstance(pos, torch.Tensor):
         mask = (kpos[None, :] <= pos[:, None])[:, None, None, :]
     else:
         mask = (kpos <= pos)[None, None, None, :]
     s = torch.where(mask, s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrs,bsgd->bgrd", w.to(compute_dtype), vf)
-    o = o.reshape(B, 1, H * hd)
-    return o @ p["wo"].to(compute_dtype), cache_k, cache_v
+    return o.reshape(B, 1, H, hd)

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..sharding.partition import shard_constraint
+
 Params = Any
 
 
@@ -104,7 +106,12 @@ def embedding_init(gen, vocab, d_model, dtype):
 
 
 def embed(p: Params, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
-    return p["table"].to(compute_dtype)[tokens.long()]
+    # Under a mesh: F.embedding, not `table[tokens]`, whose backward by a
+    # split index fails in DTensor's rule for index_put (torch 2.11); and
+    # the rows laid out by lane at once, since a vocab-split table gives a
+    # pending masked sum that DTensor cannot reduce into a split dim
+    x = F.embedding(tokens.long(), p["table"].to(compute_dtype))
+    return shard_constraint(x, "batch", None, None)
 
 
 def unembed(p: Params, x: torch.Tensor, compute_dtype) -> torch.Tensor:

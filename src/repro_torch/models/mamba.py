@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.mamba_scan import ops as scan_ops
+from ..sharding.partition import shard_constraint
 from .config import ModelConfig
 from .layers import _init, rmsnorm, rmsnorm_init, torch_dtype
 
@@ -135,6 +136,10 @@ def _mamba1_inputs(p, x, cfg: ModelConfig, cd, conv_state=None):
     dt, Bc, Cc = torch.split(proj, [dt_rank, ds, ds], dim=-1)
     dt = _softplus(dt @ p["dt_proj"].to(cd) + p["dt_bias"].to(cd))
     A = -torch.exp(p["A_log"].float())
+    # the scan runs per lane and channel: lanes over the batch axes,
+    # channels over the heads axis
+    xi = shard_constraint(xi, "batch", None, "heads")
+    dt = shard_constraint(dt, "batch", None, "heads")
     return xi_pre, xi, z, dt, Bc, Cc, A, conv_out
 
 
@@ -313,6 +318,10 @@ def _mamba2_inputs(p, x, cfg: ModelConfig, cd, conv_state=None):
     Bc, Cc = F.silu(bc).chunk(2, dim=-1)
     dt = _softplus(dt + p["dt_bias"].to(cd))
     A = -torch.exp(p["A_log"].float())
+    # the SSD runs per lane and SSM head: lanes over the batch axes, the
+    # inner channels and heads over the heads axis
+    xi = shard_constraint(xi, "batch", None, "heads")
+    dt = shard_constraint(dt, "batch", None, "heads")
     return (z, xi_pre, bc_pre, xi, Bc, Cc, dt, A,
             torch.cat([conv_x, conv_bc], dim=-1))
 

@@ -18,6 +18,7 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve, to_device
 from ..tree import tree_map
@@ -28,7 +29,8 @@ from .config import ModelConfig
 from .layers import (dense, dense_init, embed, embedding_init, mlp, rmsnorm,
                      rmsnorm_init, torch_dtype, unembed)
 from .transformer import (ExecConfig, _layer, _n_stacked,
-                          decode_state_batch_axes, encoder_forward, family,
+                          decode_state_axes, decode_state_batch_axes,
+                          encoder_forward, family,
                           stack_forward, stack_init)
 
 Params = Any
@@ -159,6 +161,13 @@ class Model:
                                       torch_dtype(cfg.compute_dtype),
                                       resolve(device))
 
+    def decode_state_specs(self, rules):
+        """PartitionSpec tree matching init_decode_state's structure:
+        batch over DP axes, K/V heads by the kv_heads rule and the KV
+        sequence by kv_seq, d_inner / SSM heads over the heads axis (the
+        reference's specs, read from the family table)."""
+        return decode_state_axes(self.cfg, lambda axes: rules.spec(*axes))
+
     def decode_state_batch_axes(self):
         """A tree shaped like `init_decode_state`'s whose leaves are the
         batch axis of each state leaf: 1 under a lead of one stacked axis
@@ -188,44 +197,36 @@ class Model:
             return self._prefill_ssm(params, x, dt)
         if cfg.family == "hybrid":
             return self._prefill_hybrid(params, x, dt, max_len)
-        B, S, _ = x.shape
+        S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
-        state = attn_mod.init_kv_cache(cfg, B, max(max_len, S), cfg.n_layers,
-                                       dt, x.device)
-        enc_out = None
-        if cfg.family == "encdec":
-            enc_out = self._encode(params, batch, dt)
-            cross = attn_mod.init_kv_cache(cfg, B, enc_out.shape[1],
-                                           cfg.n_layers, dt, x.device)
-            state.update(cross_k=cross["k"], cross_v=cross["v"])
+        enc_out = self._encode(params, batch, dt) \
+            if cfg.family == "encdec" else None
+        kvs = []
         for i in range(cfg.n_layers):
-            x = self._prefill_dense(_layer(params["stack"]["layers"], i), x,
-                                    positions, state, i, dt, enc_out)
+            x, kv = self._prefill_dense(_layer(params["stack"]["layers"], i),
+                                        x, positions, dt, enc_out)
+            kvs.append(kv)
         h = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
-        return unembed(params["embedding"], h, dt), state
+        return unembed(params["embedding"], h, dt), _kv_caches(kvs, max_len)
 
-    def _prefill_dense(self, lp, x, positions, caches, i: int, dt,
-                       enc_out=None):
-        """One dense (or moe) block's prefill; its K/V go to row i of
-        `caches`. With `enc_out`, an encdec decoder block: the
-        cross-attention over it comes between self-attention and MLP, its
-        K/V (projected once) to row i of the cross caches."""
+    def _prefill_dense(self, lp, x, positions, dt, enc_out=None):
+        """One dense (or moe) block's prefill: (x, its K/V {"k", "v"} in
+        the compute dtype). With `enc_out`, an encdec decoder block: the
+        cross-attention comes between self-attention and MLP, and its K/V
+        (projected once) are returned as "cross_k", "cross_v"."""
         cfg = self.cfg
         o, k, v = attn_mod.attention_with_kv(
             lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
             positions=positions, impl=self.ec.attn_impl, compute_dtype=dt)
         x = x + o
-        S = x.shape[1]
-        caches["k"][i, :, :S] = k.to(dt)
-        caches["v"][i, :, :S] = v.to(dt)
+        kv = {"k": k.to(dt), "v": v.to(dt)}
         if enc_out is not None:
             o, ck, cv = attn_mod.cross_attention_with_kv(
                 lp["cross"], rmsnorm(lp["ln_x"], x, cfg.norm_eps), enc_out,
                 cfg, impl=self.ec.attn_impl, compute_dtype=dt)
             x = x + o
-            caches["cross_k"][i] = ck.to(dt)
-            caches["cross_v"][i] = cv.to(dt)
-        return x + self._mlp(lp, rmsnorm(lp["ln2"], x, cfg.norm_eps), dt)
+            kv.update(cross_k=ck.to(dt), cross_v=cv.to(dt))
+        return x + self._mlp(lp, rmsnorm(lp["ln2"], x, cfg.norm_eps), dt), kv
 
     def _mlp(self, lp, x, dt):
         """A block's MLP: the routed experts where the block has them (their
@@ -257,21 +258,18 @@ class Model:
 
     def _prefill_hybrid(self, params, x, dt, max_len: int):
         cfg, stack = self.cfg, params["stack"]
-        B, S, _ = x.shape
+        S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
-        G = _n_stacked(stack["layers"])
-        attn = attn_mod.init_kv_cache(cfg, B, max(max_len, S), G, dt,
-                                      x.device)
-        groups = []
-        for g in range(G):
+        groups, kvs = [], []
+        for g in range(_n_stacked(stack["layers"])):
             x, st = self._prefill_mamba(_layer(stack["layers"], g), x, dt)
             groups.append(st)
-            x = self._prefill_dense(stack["shared"], x, positions, attn, g,
-                                    dt)
+            x, kv = self._prefill_dense(stack["shared"], x, positions, dt)
+            kvs.append(kv)
         state = {"mamba": _stack(groups)}
         if "tail" in stack:
             x, state["tail"] = self._prefill_mamba(stack["tail"], x, dt)
-        state["attn"] = attn
+        state["attn"] = _kv_caches(kvs, max_len)
         h = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
         return unembed(params["embedding"], h, dt), state
 
@@ -342,6 +340,20 @@ class Model:
             for k, v in st.items():
                 states[k][i] = v
         return x
+
+
+def _kv_caches(kvs: list, max_len: int) -> dict:
+    """The per-layer K/V of a prefill -> the decode caches: each key
+    stacked on a leading layer axis, "k" and "v" zero-padded along the
+    sequence to max_len (so decode continues in place), the cross caches
+    as they are. Built out of place, so that a prefill under a mesh keeps
+    every cache a DTensor laid out like its K/V."""
+    out = _stack(kvs)
+    for key in ("k", "v"):
+        pad = max_len - out[key].shape[2]
+        if pad > 0:
+            out[key] = F.pad(out[key], (0, 0, 0, 0, 0, pad))
+    return out
 
 
 def _stack(trees: list):

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..sharding.partition import shard_constraint
 from .config import ModelConfig
 from .layers import _init
 
@@ -70,9 +71,11 @@ def _top_k_routing(logits: torch.Tensor, k: int, capacity: int):
                       E * capacity)
 
     def scatter(src):
-        out = torch.zeros((G, g, E * capacity + 1), dtype=torch.float32,
-                          device=logits.device)
-        out.scatter_(-1, col, src)
+        # out of place: under a mesh `col` and `src` are DTensors, which
+        # DTensor scatters only into a new tensor
+        out = torch.scatter(torch.zeros((G, g, E * capacity + 1),
+                                        dtype=torch.float32,
+                                        device=logits.device), -1, col, src)
         return out[..., :-1].reshape(G, g, E, capacity)
 
     dispatch = scatter(torch.ones_like(gate_vals))
@@ -103,17 +106,19 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
     capacity = max(int(cfg.capacity_factor * k * g / E), 1)
     capacity = max((capacity + 3) // 4 * 4, 4)   # pad to a lane-friendly size
 
-    # the reference's sharding constraints on xt, xe and ye are layout
-    # hints for a mesh; one card has none (ROADMAP item 7)
     dt = compute_dtype
-    xt = x.reshape(G, g, D).to(dt)
+    xt = shard_constraint(x.reshape(G, g, D), "batch", None, None).to(dt)
     logits = xt @ p["router"].to(dt)
     dispatch, combine, aux = _top_k_routing(logits, k, capacity)
 
+    # (G,g,E,C) x (G,g,D) -> (G,E,C,D): routing groups over the batch
+    # axes, experts over the expert axis
     xe = torch.einsum("Gtec,Gtd->Gecd", dispatch.to(dt), xt)
+    xe = shard_constraint(xe, "batch", "expert", None, None)
     gt = torch.einsum("Gecd,edf->Gecf", xe, p["wi_gate"].to(dt))
     up = torch.einsum("Gecd,edf->Gecf", xe, p["wi_up"].to(dt))
     h = F.silu(gt) * up
     ye = torch.einsum("Gecf,efd->Gecd", h, p["wo"].to(dt))
+    ye = shard_constraint(ye, "batch", "expert", None, None)
     y = torch.einsum("Gtec,Gecd->Gtd", combine.to(dt), ye)
     return y.reshape(B, S, D), aux.float()

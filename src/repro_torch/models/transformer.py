@@ -32,6 +32,7 @@ from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
 from .config import ModelConfig
+from ..sharding.partition import shard_constraint
 from ..tree import tree_map
 from .layers import mlp, mlp_init, rmsnorm, rmsnorm_init
 
@@ -45,10 +46,13 @@ class ExecConfig:
     encdec model's encoder and cross-attention too) and,
     in an ssm (Mamba1) model, the prefill scan through S1 (the reference's
     ssm path ignores the knob; ROADMAP C5). Mamba2 layers run the chunked
-    SSD under every value, as in the reference."""
+    SSD under every value, as in the reference. `seq_parallel` keeps the
+    residual stream of a dense block sequence-sharded between its
+    sublayers under a mesh (a no-op without one)."""
     attn_impl: str = "chunked"        # naive | chunked | pallas (F1, S1)
     remat_policy: str = "full"        # none | full
     xent_chunks: int = 4
+    seq_parallel: bool = False        # sequence-shard the residual stream
     moe_group: int = 256              # MoE routing group size (tokens)
 
 
@@ -63,10 +67,17 @@ def dense_block_init(gen, cfg: ModelConfig, dtype, lead=()):
 
 
 def dense_block(p, x, cfg: ModelConfig, ec: ExecConfig, positions, dt):
-    h = x + attn_mod.attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
-                               cfg, positions=positions, impl=ec.attn_impl,
-                               compute_dtype=dt)
-    return h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps), dt)
+    def sp(t):
+        # Megatron-style sequence parallelism: the residual stream lives
+        # sequence-sharded between sublayers
+        return shard_constraint(t, "batch", "seq", None) \
+            if ec.seq_parallel else t
+
+    h = sp(x + attn_mod.attention(p["attn"],
+                                  rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
+                                  positions=positions, impl=ec.attn_impl,
+                                  compute_dtype=dt))
+    return sp(h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps), dt))
 
 
 def moe_block_init(gen, cfg: ModelConfig, dtype, lead=()):
@@ -217,33 +228,63 @@ def _ssm_state(cfg, batch, max_len, dt, device):
                                       lead=(cfg.n_layers,))
 
 
+def _kv_axes(lead: int = 1) -> dict:
+    ax = (None,) * lead + ("batch", "kv_seq", "kv_heads", None)
+    return {"k": ax, "v": ax}
+
+
+def _encdec_axes(cfg) -> dict:
+    cross = (None, "batch", None, "kv_heads", None)
+    return dict(_kv_axes(), cross_k=cross, cross_v=cross)
+
+
+def _ssm_axes(cfg, lead: int = 1) -> dict:
+    lead = (None,) * lead
+    h = ("batch", "heads", None) if cfg.ssm_version == 1 \
+        else ("batch", "heads", None, None)
+    return {"h": lead + h, "conv": lead + ("batch", None, "heads")}
+
+
+def _hybrid_axes(cfg) -> dict:
+    out = {"mamba": _ssm_axes(cfg, 2), "attn": _kv_axes()}
+    if cfg.n_layers % cfg.attn_every:
+        out["tail"] = _ssm_axes(cfg)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class Family:
     """One architecture family's stack and decode state.
     `init(gen, cfg, dtype)` draws `params["stack"]`; `forward(p, x, cfg,
     ec, positions, dt, enc_out) -> (x, aux)` runs it; `init_state(cfg,
     batch, max_len, dt, device)` builds the zeroed decode state (the one
-    place its leaves are named: `decode_state_batch_axes` reads their batch
-    axes off it); `prefill_inputs` are the batch keys that the prefill
-    needs."""
+    place its leaves are made: `decode_state_batch_axes` reads their batch
+    axes off it); `state_axes(cfg)` names the logical axis of each dim of
+    each state leaf, in a tree shaped like it (the decode state's
+    sharding; `decode_state_axes` holds the two alike); `prefill_inputs`
+    are the batch keys that the prefill needs."""
     init: Callable
     forward: Callable
     init_state: Callable
+    state_axes: Callable
     prefill_inputs: tuple = ("tokens",)
 
 
 FAMILIES = {
     "dense": Family(_layers_init(dense_block_init),
-                    _layers_forward(_dense_body), _kv_state),
+                    _layers_forward(_dense_body), _kv_state,
+                    lambda cfg: _kv_axes()),
     "vlm": Family(_layers_init(dense_block_init),
-                  _layers_forward(_dense_body), _kv_state),
+                  _layers_forward(_dense_body), _kv_state,
+                  lambda cfg: _kv_axes()),
     "moe": Family(_layers_init(moe_block_init), _layers_forward(_moe_body),
-                  _kv_state),
+                  _kv_state, lambda cfg: _kv_axes()),
     "encdec": Family(_encdec_init, _layers_forward(_encdec_body),
-                     _encdec_state, ("tokens", "enc_emb")),
+                     _encdec_state, _encdec_axes, ("tokens", "enc_emb")),
     "ssm": Family(_layers_init(mamba_block_init),
-                  _layers_forward(_mamba_body), _ssm_state),
-    "hybrid": Family(_hybrid_init, _hybrid_forward, _hybrid_state),
+                  _layers_forward(_mamba_body), _ssm_state, _ssm_axes),
+    "hybrid": Family(_hybrid_init, _hybrid_forward, _hybrid_state,
+                     _hybrid_axes),
 }
 
 
@@ -269,6 +310,25 @@ def decode_state_batch_axes(cfg: ModelConfig):
     return tree_map(lambda a, b: next(
         i for i, (m, n) in enumerate(zip(a.shape, b.shape)) if m != n),
         one, two)
+
+
+def decode_state_axes(cfg: ModelConfig, fn: Callable = lambda axes: axes):
+    """`fn` of the family's `state_axes` of each decode-state leaf, in a
+    tree shaped like the state, checked against the state it describes:
+    the same leaves, one axis name per dim, "batch" at each leaf's batch
+    axis (ValueError otherwise)."""
+    axes = family(cfg).state_axes(cfg)
+    state = family(cfg).init_state(cfg, 1, 1, torch.float32,
+                                   torch.device("meta"))
+
+    def one(s, a, b):
+        if len(a) != s.dim() or a.index("batch") != b:
+            raise ValueError(f"state_axes {a} of the {cfg.family} family "
+                             f"do not describe a state leaf of rank "
+                             f"{s.dim()} with batch axis {b}")
+        return fn(a)
+
+    return tree_map(one, state, axes, decode_state_batch_axes(cfg))
 
 
 def _layer(layers, i: int):

@@ -41,8 +41,16 @@ lane along each state leaf's batch axis as the model names it
 (`Model.decode_state_batch_axes`: axis 1 of the dense `(L, B, S, Hkv,
 hd)`, axis 2 of a hybrid's Mamba2 `(G, E, B, ...)`); the reference finds
 that axis by its size, which picks a layer or group axis when one equals
-n_slots and prefill_batch (ROADMAP C2). `mesh`/`rules` (the sharded
-engine) are not ported yet.
+n_slots and prefill_batch (ROADMAP C2).
+
+With `mesh`/`rules` every rank of the mesh runs the engine (one process a
+device, each fed the same requests): the parameters are placed by
+`tree_shardings`, the decode state as DTensors by the model's
+`decode_state_specs` fitted by `_divisible` (lanes over the data axis,
+the KV sequence over kv_seq), and each prefill and decode step runs in a
+constraint scope on token batches split by `batch_spec`. Admission
+writes a prefilled lane into the rank that holds its slot, without
+gathering the cache; snapshots and restores keep the placements.
 
 Prefill takes the prompt's tokens alone, as in the reference: a vlm model
 is served without its frontend, and an encdec model, whose prefill needs
@@ -51,6 +59,7 @@ reference fails at its first admission; ROADMAP C8).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import OrderedDict
 from typing import Callable, Optional
@@ -58,10 +67,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.device import HostCopy, host_leaf, to_device
+from repro_torch.device import HostCopy, host_leaf, is_dtensor, to_device
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import family
 from repro_torch.scenarios import hooks
+from repro_torch.sharding.partition import (NamedSharding, _divisible,
+                                            batch_spec, constraint_scope,
+                                            distribute, distribute_tree,
+                                            from_full, gather, local_offsets,
+                                            named, tree_shardings)
 from repro_torch.tree import tree_leaves, tree_map
 
 @dataclasses.dataclass
@@ -90,20 +104,41 @@ class Request:
 
 
 class SnapshotLeaf:
-    """One leaf of `ServeEngine.snapshot()`: a clone on the device, and
-    for a CUDA leaf its copy into pinned host memory, started without
-    waiting. `host()` waits for that copy; `restore` clones `dev`."""
+    """One leaf of `ServeEngine.snapshot()`: a clone on the device (a
+    DTensor keeps its placements), and for a plain CUDA leaf its copy
+    into pinned host memory, started without waiting. `host()` waits for
+    that copy (a DTensor leaf is assembled, by every rank of its mesh);
+    `restore` clones `dev`."""
 
     __slots__ = ("dev", "copy")
 
     def __init__(self, t: torch.Tensor):
         self.dev = t.detach().clone()
-        self.copy = HostCopy(self.dev) if self.dev.is_cuda else None
+        self.copy = HostCopy(self.dev) \
+            if self.dev.is_cuda and not is_dtensor(self.dev) else None
 
     def host(self):
         """The leaf on the host (numpy, or a CPU tensor for bfloat16)."""
         return self.copy.result() if self.copy is not None \
-            else host_leaf(self.dev)
+            else host_leaf(gather(self.dev))
+
+
+def _local_lanes(dst, src, axis: int, pairs: list):
+    """For a DTensor decode-state leaf: (its local shard, the prefill
+    leaf `src` laid out like it but whole along `axis`, the (local slot,
+    lane) pairs of the slots this rank holds)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = dst.device_mesh
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == axis else p
+          for p in dst.placements]
+    if is_dtensor(src):
+        src = src.redistribute(mesh, pl)
+    else:
+        src = from_full(src.to(dst.device), mesh, pl)
+    local = dst.to_local()
+    lo, n = local_offsets(dst)[axis], local.shape[axis]
+    return local, src.to_local(), [(d - lo, s) for d, s in pairs
+                                   if lo <= d < lo + n]
 
 
 def host_state(state):
@@ -120,10 +155,6 @@ class ServeEngine:
                  mesh=None, rules=None,
                  sink: Optional[Callable[[int, int, int], None]] = None,
                  name: str = "serve0"):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(
-                "a mesh-sharded ServeEngine is not ported yet: ROADMAP "
-                "queue A, item 7 (sharding)")
         needs = [k for k in family(model.cfg).prefill_inputs
                  if k != "tokens"]
         if needs:
@@ -143,10 +174,18 @@ class ServeEngine:
         # the prefill shape never depends on queue occupancy
         self.prefill_batch = min(n_slots, 4) if prefill_batch is None \
             else max(1, min(prefill_batch, n_slots))
+        self.mesh, self.rules = mesh, rules
+        self._state_shd = None
+        if mesh is not None:
+            if rules is None:
+                raise ValueError("mesh requires sharding rules")
+            params = distribute_tree(params,
+                                     tree_shardings(mesh, params, rules))
+            self._state_shd = self._decode_state_shardings()
         self.params = params
         self.device = tree_leaves(params)[0].device
-        self.state = model.init_decode_state(n_slots, max_len,
-                                             device=self.device)
+        self.state = self._place(model.init_decode_state(
+            n_slots, max_len, device=self.device))
         # the batch axis of each state leaf, in a tree shaped like it
         self.batch_axes = model.decode_state_batch_axes()
         self.slots: list[Optional[Request]] = [None] * n_slots
@@ -164,6 +203,38 @@ class ServeEngine:
         self._seen_prompts: set[tuple] = set()
         self._tick = 0                     # engine steps taken (monotonic)
         self.prefill_calls = 0             # model prefills run (cache misses)
+
+    # ----------------------------------------------------------- sharding
+
+    def _decode_state_shardings(self):
+        meta = self.model.init_decode_state(self.n_slots, self.max_len,
+                                            device="meta")
+        return tree_map(
+            lambda leaf, s: NamedSharding(self.mesh, _divisible(
+                s, leaf.shape, self.mesh)),
+            meta, self.model.decode_state_specs(self.rules))
+
+    def _place(self, state):
+        """A decode state on the mesh: plain leaves (the same on every
+        rank) placed by the decode-state shardings, DTensors as they
+        are."""
+        if self._state_shd is None:
+            return state
+        return tree_map(lambda a, s: a if is_dtensor(a) else distribute(a, s),
+                        state, self._state_shd)
+
+    def _scope(self):
+        return constraint_scope(self.mesh, self.rules) \
+            if self.mesh is not None else contextlib.nullcontext()
+
+    def _tokens(self, toks: np.ndarray):
+        """A (B, S) token batch on the device, its lanes split over the
+        batch axes under a mesh."""
+        t = torch.from_numpy(toks).to(self.device)
+        if self.mesh is None:
+            return t
+        return distribute(t, named(self.mesh, _divisible(
+            batch_spec(self.rules), t.shape, self.mesh)))
 
     # -------------------------------------------------------------- admin
 
@@ -199,15 +270,23 @@ class ServeEngine:
 
     def _splice(self, slot_idx: list[int], lanes: list[int], src_state):
         """Write lanes of a prefilled batch-`g` state into the given
-        slots of the decode state, in place, along the batch axis."""
-        dst_idx = torch.tensor(slot_idx, device=self.device)
-        src_idx = torch.tensor(lanes, device=self.device)
-
+        slots of the decode state, in place, along the batch axis. A
+        DTensor leaf is written shard by shard: the prefill state (small)
+        is laid out like the leaf but with every lane on every rank, and
+        each rank writes the slots its shard holds."""
         def sp(dst, src, axis):
-            src = src.to(self.device)
             if dst.dim() != src.dim():
                 raise ValueError(f"rank mismatch {tuple(dst.shape)} vs "
                                  f"{tuple(src.shape)}")
+            pairs = list(zip(slot_idx, lanes))
+            if is_dtensor(dst):
+                dst, src, pairs = _local_lanes(dst, src, axis, pairs)
+            else:
+                src = src.to(self.device)
+            if not pairs:
+                return
+            dst_idx = torch.tensor([d for d, _ in pairs], device=dst.device)
+            src_idx = torch.tensor([s for _, s in pairs], device=dst.device)
             lanes_ = src.index_select(axis, src_idx).to(dst.dtype)
             dst.index_copy_(axis, dst_idx, lanes_)
 
@@ -231,9 +310,10 @@ class ServeEngine:
             self._prefill_cache.popitem(last=False)
 
     def _lane_state(self, src_state, lane: int):
-        """One lane of a batch-G prefill state, lane axis kept (size 1)."""
-        return tree_map(lambda a, axis: a.narrow(axis, lane, 1), src_state,
-                        self.batch_axes)
+        """One lane of a batch-G prefill state, lane axis kept (size 1);
+        under a mesh, assembled (the prefill state, not the cache)."""
+        return tree_map(lambda a, axis: gather(a).narrow(axis, lane, 1),
+                        src_state, self.batch_axes)
 
     def _commit_admission(self, slot: int, req: Request, nxt: int):
         req.out.append(int(nxt))
@@ -276,10 +356,10 @@ class ServeEngine:
                            (self.prefill_batch, 1))
             for i, r in enumerate(take):
                 toks[i] = np.asarray(r.prompt, np.int64)
-            logits, st = self._prefill_fn(
-                self.params, torch.from_numpy(toks).to(self.device))
+            with self._scope():
+                logits, st = self._prefill_fn(self.params, self._tokens(toks))
             self.prefill_calls += 1
-            nxts = logits[:, -1].argmax(-1).cpu().numpy()
+            nxts = gather(logits[:, -1]).argmax(-1).cpu().numpy()
             # interruption point: prefill computed, nothing committed —
             # a kill here loses the compute but neither queue nor slots
             hooks.fire("serve.prefill.mid", engine=self,
@@ -311,10 +391,11 @@ class ServeEngine:
         # per-slot positions: each slot writes its KV at its own clock
         # and masks from its own position; inactive slots decode padding
         # into lanes that the next admission's prefill fully overwrites
-        logits, self.state = self._decode(
-            self.params, torch.from_numpy(cur).to(self.device), self.state,
-            torch.from_numpy(self.pos.astype(np.int64)).to(self.device))
-        nxt = logits[:, 0].argmax(-1).cpu().numpy()
+        with self._scope():
+            logits, self.state = self._decode(
+                self.params, self._tokens(cur), self.state,
+                torch.from_numpy(self.pos.astype(np.int64)).to(self.device))
+        nxt = gather(logits[:, 0]).argmax(-1).cpu().numpy()
         for i in active:
             req = self.slots[i]
             req.out.append(int(nxt[i]))
@@ -363,7 +444,7 @@ class ServeEngine:
                 return a.dev.clone()
             return to_device(a, self.device)
 
-        self.state = tree_map(place, snap["state"])
+        self.state = self._place(tree_map(place, snap["state"]))
         self.pos = np.asarray(snap["pos"], np.int32).copy()
         self.slots = [Request.from_dict(d) if d else None
                       for d in snap["slots"]]

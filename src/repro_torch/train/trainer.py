@@ -30,10 +30,17 @@ policy-interval, a failed-and-recovered run converges to the bit-identical
 state of an uninterrupted run. On the card that needs deterministic
 kernels: the entry points call `repro_torch.device.set_deterministic()`.
 
-The port has one device and no mesh: a shrink or grow-back bumps the mesh
-epoch as bookkeeping only and rebuilds the step function, and the global
-batch never changes, so a shrunk run's final state is bit-identical to
-the fault-free run's.
+With `mesh`/`rules` every rank of the mesh runs this driver (one process a
+device): the state is held as DTensors placed by `state_shardings`, each
+step runs in a constraint scope on the rank's slice of the global batch
+(placed by `batch_spec`), the buddy copy is a real ring of shards over the
+data axis (`buddy_exchange`, when that axis is longer than one) and the
+file tier is written by the mesh's origin rank. The injector is
+deterministic and every rank holds the same view, so every rank takes
+the same recovery branch. A shrink or grow-back bumps the mesh epoch as
+bookkeeping (the devices stay; as in the reference) and rebuilds the step
+function, and the global batch never changes, so a shrunk run's final
+state is bit-identical to the fault-free run's.
 """
 from __future__ import annotations
 
@@ -43,7 +50,8 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.checkpoint import FileCheckpointer
+from repro_torch.checkpoint import FileCheckpointer, buddy_exchange, \
+    restore_from_buddy
 from repro_torch.checkpoint.policy import CheckpointPolicy
 from repro_torch.core import (ClusterView, ElasticManager, FailureEvent,
                               FailureType, FaultInjector, MeshEpoch,
@@ -54,6 +62,11 @@ from repro_torch.device import resolve, to_device
 from repro_torch.models.model import Model
 from repro_torch.scenarios.schema import GRAY_DRAIN_PERSIST, GRAY_HOWS, \
     gray_delay_s
+from repro_torch.sharding.partition import (batch_spec, constraint_scope,
+                                            distribute, distribute_tree,
+                                            gather, named,
+                                            state_shardings, _divisible)
+from repro_torch.sharding.rules import PRESETS, ShardingRules
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 from .data import TokenPipeline
@@ -108,11 +121,14 @@ def _clone(state):
 class Trainer:
     def __init__(self, model: Model, data: TokenPipeline,
                  opt_cfg: AdamWConfig, tc: TrainConfig, *,
+                 mesh=None, rules: Optional[ShardingRules] = None,
                  injector: Optional[FaultInjector] = None):
         self.model = model
         self.data = data
         self.opt_cfg = opt_cfg
         self.tc = tc
+        self.mesh = mesh
+        self.rules = rules or PRESETS["single"]
         self.device = resolve(tc.device)
         self.strategy = get_strategy(tc.strategy)
         self.injector = injector
@@ -122,7 +138,8 @@ class Trainer:
         # elastic strategy: the membership machine owns the spare pool,
         # the shrink/grow decisions and the dropped-rank ledger; one node
         # = one data-parallel group. The mesh epoch is bookkeeping only
-        # here (one device, no mesh)
+        # (the devices of a mesh stay through a shrink, as in the
+        # reference)
         self.elastic = ElasticManager(
             self.view, MeshEpoch(epoch=0, data_parallel=tc.n_nodes,
                                  model_parallel=tc.ranks_per_node),
@@ -133,7 +150,7 @@ class Trainer:
         self.file_ckpt = FileCheckpointer(
             tc.ckpt_dir, n_shards=tc.ckpt_shards,
             delta_every=tc.ckpt_delta_every, gather=tc.ckpt_gather,
-            rebase_after=tc.ckpt_rebase_after)
+            rebase_after=tc.ckpt_rebase_after, mesh=mesh)
         # buddy memory checkpoint: (step, state_copy, buddy_copy)
         self.mem_ckpt: Optional[tuple[int, Any, Any]] = None
         # replica strategy: the victim's warm shadow — a device copy of
@@ -181,19 +198,53 @@ class Trainer:
                          "step": state["step"] + 1}
             return new_state, (loss.detach(), {**metrics, **om})
 
-        self._step = train_step
+        self._step_fn = train_step
+
+    def _step(self, state, batch):
+        if self.mesh is None:
+            return self._step_fn(state, batch)
+        with constraint_scope(self.mesh, self.rules):
+            new, out = self._step_fn(state, self._place_batch(batch))
+            # the step's result laid out as its input was (a replicated
+            # leaf's update comes back as a pending sum)
+            return tree_map(lambda a, s: a.redistribute(s.mesh,
+                                                        s.placements),
+                            new, state_shardings(self.mesh, new,
+                                                 self.rules)), out
+
+    def _place_batch(self, batch):
+        """This rank's slice of the global batch, as DTensors."""
+        return {k: distribute(v, named(self.mesh, _divisible(
+            batch_spec(self.rules), v.shape, self.mesh)))
+            for k, v in batch.items()}
 
     # -------------------------------------------------------------- state
 
     def init_state(self) -> dict:
         gen = torch.Generator(device=self.device).manual_seed(self.tc.seed)
         params = self.model.init(gen)
-        return {"params": params, "opt": adamw_init(params),
-                "step": torch.zeros((), dtype=torch.int32,
-                                    device=self.device)}
+        return self._place({"params": params, "opt": adamw_init(params),
+                            "step": torch.zeros((), dtype=torch.int32,
+                                                device=self.device)})
+
+    def _place(self, state) -> dict:
+        """A state of plain tensors (the same on every rank) placed on the
+        mesh by `state_shardings`; as it is without a mesh."""
+        if self.mesh is None:
+            return state
+        return distribute_tree(state, state_shardings(self.mesh, state,
+                                                      self.rules))
 
     def _load_state(self, state) -> dict:
-        return tree_map(lambda a: to_device(a, self.device), state)
+        return self._place(tree_map(lambda a: to_device(a, self.device),
+                                    state))
+
+    def _data_parallel(self) -> bool:
+        """Whether the mesh's data axis is longer than one (the buddy copy
+        then lives on another rank)."""
+        return self.mesh is not None \
+            and "data" in self.mesh.mesh_dim_names \
+            and self.mesh.size(self.mesh.mesh_dim_names.index("data")) > 1
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -229,7 +280,10 @@ class Trainer:
             self._handle_failure(failure)
             raise RollbackSignal(self.view.epoch)
         state = self.state
-        buddy = _clone(state)           # one device: the buddy is a copy
+        if self._data_parallel():
+            buddy = buddy_exchange(state, self.mesh, self.rules)
+        else:
+            buddy = _clone(state)       # the buddy copy is on this device
         local = _clone(state)
         self.file_ckpt.save(step, state, async_=self.policy.async_file)
         failure = self._injected_at("worker.ckpt.pre_push", step)
@@ -319,9 +373,12 @@ class Trainer:
                 use_memory = False
         if use_memory:
             step, local, buddy = self.mem_ckpt
-            # survivors keep `local`; the failed shard comes from the buddy
-            # (same global value at world 1)
-            self.state = _clone(buddy)
+            restored = restore_from_buddy(buddy, self.mesh, self.rules) \
+                if self._data_parallel() else buddy
+            # survivors keep `local`; the failed shard comes from
+            # `restored` (the same global value: the tests hold the
+            # digests equal)
+            self.state = _clone(restored)
             rollback_step = step
         else:
             rollback_step, self.state = self._restore_file()
@@ -502,7 +559,7 @@ class Trainer:
             raise RuntimeError("no training state after recovery")
         hb = self.strategy.fault_free_overhead(self.n_ranks)
 
-        step = int(self.state["step"])
+        step = int(gather(self.state["step"]))
         while step < tc.total_steps:
             ROLLBACK.check()                      # safe-point (paper §3.2)
             failure = self.injector.check(step, self.view) \
@@ -521,7 +578,8 @@ class Trainer:
             self.state, (loss, _) = self._step(self.state, batch)
             self._sync()
             dt = time.monotonic() - t0
-            step = int(self.state["step"])
+            step = int(gather(self.state["step"]))
+            loss = gather(loss)
             self.straggler.observe(step, dt)
             drain = self._observe_gray(step)
             if drain is not None:

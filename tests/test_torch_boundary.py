@@ -43,6 +43,8 @@ SLICE_MODULES = [
     "repro_torch.runtime.transport", "repro_torch.runtime.daemon",
     "repro_torch.runtime.root", "repro_torch.runtime.worker",
     "repro_torch._lazy",
+    "repro_torch.sharding", "repro_torch.sharding.rules",
+    "repro_torch.sharding.partition", "repro_torch.launch.mesh",
 ]
 
 # the control plane: the root, its daemons, the transport, the simulator

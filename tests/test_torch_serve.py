@@ -291,9 +291,12 @@ def test_submit_rejects_oversized_prompt(setup):
 
 
 def test_mesh_engine_is_not_ported(setup):
+    """The sharded engine is ported (its runs on a mesh are in
+    test_torch_sharded.py); a mesh without sharding rules raises the
+    reference's ValueError before anything is placed."""
     model, params = setup
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ServeEngine(model, params, mesh=object(), rules=object())
+    with pytest.raises(ValueError, match="mesh requires sharding rules"):
+        ServeEngine(model, params, mesh=object())
 
 
 # ------------------------------------------------------------ serve CLI

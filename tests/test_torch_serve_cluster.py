@@ -250,9 +250,17 @@ def test_buddy_store_matches_reference(tmp_path, case):
 
 
 def test_mesh_buddy_exchange_is_not_ported():
-    for fn in (buddy_exchange, restore_from_buddy):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            fn({}, None, None)
+    """The buddy exchange is ported (its 4-rank ring is in
+    test_torch_sharding.py): on a world-1 CPU mesh both directions return
+    the state unchanged, as the reference's do on an axis of one."""
+    from repro_torch.launch.mesh import make_host_mesh, process_group
+    from repro_torch.sharding.rules import PRESETS
+    state = {"embedding": {"table": torch.arange(12.0).reshape(4, 3)},
+             "step": torch.zeros((), dtype=torch.int32)}
+    with process_group(device="cpu"):
+        mesh = make_host_mesh((1,), ("data",), device="cpu")
+        for fn in (buddy_exchange, restore_from_buddy):
+            assert fn(state, mesh, PRESETS["pod"]) is state
 
 
 def test_catalog_is_the_reference_catalog():
