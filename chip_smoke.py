@@ -171,6 +171,21 @@ Phases (any failure exits non-zero):
      must give the same logits and KV caches bit for bit; `pallas` is held
      to `chunked` in float32 compute; TTFT, decode tokens/s and the
      profiles as in 8d (both phases run one skeleton, `phase_serve_api`);
+  8f. [dryrun] the dry run (`repro_torch.launch.dryrun`) on this host's
+     torch: qwen2-7b x decode_32k and seamless-m4t-medium x train_4k (4
+     microbatches, the buddy ring fused) traced on fake tensors under a
+     fake world of 256 (16x16 `pod`), each printed (trace seconds, one
+     device's memory, collectives and FLOPs, the analytic FLOPs) and
+     failing on zero collective bytes, argument bytes or analytic FLOPs;
+     then qwen2-7b's prefill S 512 x 4 in bf16 with F1, traced at world
+     1 and run on the card under FlopCounterMode: equal FLOPs (F1 by its
+     formula in both), F1 once a layer, traced argument bytes equal to
+     the parameters' and tokens', the traced peak printed beside the
+     real call's; then every earlier path's launches, every serving
+     path's transcripts (`transcript_digest`) and the encdec and vlm
+     first tokens as pinned on an H100 before F1 and S1 became torch
+     operators, and F1's and S1's host issue time through the operators
+     beside their wrappers';
   9. the kernel report. Launches are counted per path: the counts are
      set to 0 just before each path is driven and read just after it.
      K2 must launch on the full-save runs (the shrink, gray and sharded
@@ -178,9 +193,9 @@ Phases (any failure exits non-zero):
      K3 (which training never reaches: AdamW dirties every tile) on the
      sparse-dirt saves, F1 on both dense serving paths and the sharded
      one, the zamba2-7b,
-     olmoe-1b-7b, seamless-m4t-medium and llava-next-34b ones and S1 on
-     the falcon-mamba-7b one; every shape, dtype and mask F1 was given
-     must be one that phase 3 checked, and every shape S1 was given one
+     olmoe-1b-7b, seamless-m4t-medium and llava-next-34b ones and
+     [dryrun]'s real prefill, and S1 on the falcon-mamba-7b one; every
+     shape, dtype and mask F1 was given must be one that phase 3 checked, and every shape S1 was given one
      that phase 3b checked. F1's entry on the kernels line carries, beside
      its main row, the rows of head dim 112, MHA head dim 128, the hd-64
      non-causal encoder and cross shapes and llava-next-34b's S 3072, and
@@ -343,6 +358,20 @@ TABLE_SCALE = 0.05
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+#: each serving path's transcripts, as `transcript_digest`s, and the
+#: first tokens of the model-API paths, filled as the paths run
+TRANSCRIPTS: dict = {}
+FIRST_TOKENS: dict = {}
+
+
+def transcript_digest(obj) -> str:
+    """A short digest of a path's transcripts (a JSON-able tree of token
+    ids)."""
+    import hashlib
+    return hashlib.sha256(json.dumps(obj, sort_keys=True, default=str)
+                          .encode()).hexdigest()[:16]
 
 
 def timed(fn, iters: int = 20, warmup: int = 3) -> tuple[float, float]:
@@ -1047,6 +1076,7 @@ def phase_serve(torch, arch: str, kernel: str, recording, tag: str,
         return eng
 
     straight, want = straight_run(tag, engine)
+    TRANSCRIPTS[tag] = transcript_digest(want)
     first = engine()
     for _ in range(8):
         first.step()
@@ -1312,7 +1342,7 @@ def phase_serve_api(torch, tag: str, cfg, batches: list, max_len: int,
             model.prefill(params, batch, max_len=max_len)
     torch.cuda.synchronize()
     reset_launches()
-    firsts = []
+    firsts, transcripts = [], []
     with recording_flash_shapes(seen):
         for label, batch in batches:
             nb, S = batch["tokens"].shape
@@ -1327,6 +1357,8 @@ def phase_serve_api(torch, tag: str, cfg, batches: list, max_len: int,
                     .all()):
                 fail(f"{tag}: non-finite logits at S {S} ({label})")
             firsts.append(logits[:, -1].float())
+            transcripts.append(toks.tolist())
+            FIRST_TOKENS.setdefault(tag, []).append(first.tolist())
             print(f"[{tag}] prefill S {S} x {nb} ({label}): time to first "
                   f"token {ttft:.3f} s; {FRONTEND_DECODE_STEPS} decode steps "
                   f"in {wall:.3f} s, "
@@ -1337,6 +1369,7 @@ def phase_serve_api(torch, tag: str, cfg, batches: list, max_len: int,
                   f"transcripts")
     torch.cuda.synchronize()
     launches = launch_counts()
+    TRANSCRIPTS[tag] = transcript_digest(transcripts)
     if launches["flash_attention"] != want_f1:
         fail(f"F1 launched {launches['flash_attention']} times on the "
              f"{cfg.name} path, expected {want_f1}")
@@ -1514,6 +1547,8 @@ def phase_serve_cluster(torch, seen: set) -> dict:
                       f"{k['tokens_to_first_recovered_token']}, {wall:.2f} s")
     torch.cuda.synchronize()
     launches = launch_counts()
+    TRANSCRIPTS["serve-cluster"] = transcript_digest(
+        {str(k): v for k, v in refs.items()})
     print(f"[serve-cluster] launches {launches}")
     return launches
 
@@ -2017,6 +2052,217 @@ def check_scan_build(kernels) -> float:
     return per_exp[(16, 1)]
 
 
+# [dryrun]: the production cells traced on the card's host, and the
+# world-1 prefill held against the same prefill run on the card
+DRYRUN_CELLS = (("qwen2-7b", "decode_32k", {}),
+                ("seamless-m4t-medium", "train_4k",
+                 {"microbatches": 4, "with_buddy": True}))
+DRYRUN_PREFILL = ("qwen2-7b", 512, 4)      # arch, S, B
+#: each kernel's launches on each path as recorded on an NVIDIA H100
+#: before F1 and S1 became torch operators (zeros left out; the runtime
+#: paths are the nine runs of `phase_runtime`): the bindings change none
+PINNED_LAUNCHES = {
+    "tile_checksums": {"cr-node-delta4": 420, "sparse-dirt": 105,
+                       "runtime-fault-free-2x4+1-20": 160,
+                       "runtime-reinit-process": 150,
+                       "runtime-reinit-node": 120,
+                       "runtime-cr-process": 80, "runtime-cr-node": 80,
+                       "runtime-fault-free-2x2+0-7": 28,
+                       "runtime-shrink-then-growback": 28,
+                       "runtime-fault-free-2x2+1-6": 24,
+                       "runtime-replica-promote": 21},
+    "checksum_words": {"reinit-process-full": 420, "sharded-train": 420,
+                       "shrink-node-full": 420, "gray-slow-drain": 420},
+    "gather_tiles": {"sparse-dirt": 66},
+    "flash_attention": {"sharded-serve": 84, "serve-qwen2-7b": 84,
+                        "serve-cluster-paper-demo": 480,
+                        "serve-zamba2-7b": 39, "serve-olmoe-1b-7b": 48,
+                        "serve-seamless-m4t-medium": 72,
+                        "serve-llava-next-34b": 32},
+    "selective_scan": {"serve-falcon-mamba-7b": 192},
+}
+PINNED_PATHS = (
+    "reinit-process-full", "cr-node-delta4", "sharded-train",
+    "shrink-node-full", "gray-slow-drain", "sparse-dirt",
+    "runtime-fault-free-2x4+1-20", "runtime-reinit-process",
+    "runtime-reinit-node", "runtime-cr-process", "runtime-cr-node",
+    "runtime-fault-free-2x2+0-7", "runtime-shrink-then-growback",
+    "runtime-fault-free-2x2+1-6", "runtime-replica-promote",
+    "sharded-serve", "serve-qwen2-7b", "serve-cluster-paper-demo",
+    "serve-falcon-mamba-7b", "serve-zamba2-7b", "serve-olmoe-1b-7b",
+    "serve-seamless-m4t-medium", "serve-llava-next-34b")
+#: the first tokens [serve-encdec] and [serve-vlm] printed on an NVIDIA
+#: H100 before the bindings, per prompt group
+PINNED_FIRST_TOKENS = {
+    "serve-encdec": [[120936, 34337, 120040, 11750],
+                     [135284, 13464, 12183, 252193]],
+    "serve-vlm": [[29432, 39708], [10027, 10666]],
+}
+#: `transcript_digest` of each serving path's transcripts on an NVIDIA
+#: H100 under the code before the bindings (run beside this code in one
+#: call)
+PINNED_TRANSCRIPTS = {
+    "serve": "f7f3a138282ea285", "serve-cluster": "222582601d861807",
+    "serve-encdec": "13eb30ea04d62719", "serve-hybrid": "e26bbc247672e362",
+    "serve-moe": "ab13dadebb44092e", "serve-ssm": "02d569a65e8ddcd0",
+    "serve-vlm": "ba921a9b5cd84222"}
+#: F1's and S1's host issue ms a call through their wrappers alone, as
+#: read before the bindings (PERF.md section 6)
+WRAPPER_HOST_MS = {"flash_attention": 0.0359, "selective_scan": 0.0308}
+
+
+def phase_dryrun(torch, rows: dict, by_path: dict, seen: set) -> dict:
+    """Phase 10 [dryrun]: (1) `launch.dryrun.run_cell` traces the
+    production cells of DRYRUN_CELLS on fake tensors under a fake world of
+    256 on this host (torch's own version; no card touched by the trace),
+    each failing if it raises or reads zero collective bytes, argument
+    bytes or analytic FLOPs; (2) qwen2-7b's prefill of S 512 x 4 is traced
+    at world 1 (a (1, 1) mesh, bf16 parameters, pallas) and run for real
+    on the card under `FlopCounterMode`: the FLOPs must be equal (F1 by its
+    formula in both), F1 must launch once a layer, and the traced argument
+    bytes must be the real parameters' and tokens' bytes; the traced peak
+    (argument + temp) is printed beside the real call's peak memory; (3)
+    the bindings: every earlier path's launches and every serving path's
+    transcripts as pinned before the bindings, and F1's and S1's host issue
+    time through their torch operators beside the wrapper's. Returns the
+    real prefill's launches; `seen` gets F1's cases in it."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import ExecConfig
+    from repro_torch.tree import tree_leaves
+    tag = "dryrun"
+
+    def show(r):
+        mem, coll, an = r["memory"], r["collective_bytes"], r["analytic"]
+        print(f"[{tag}] {r['arch']} x {r['shape']} x {r['mesh']} "
+              f"({r['chips']} chips, tensors on {r['device']}): trace "
+              f"{r['trace_s']:.1f} s; memory a device {json.dumps(mem)}; "
+              f"collectives a device {json.dumps(coll)}; FLOPs a device "
+              f"{r['cost_analysis']['flops_per_device']:.4g}, bytes a "
+              f"device {r['cost_analysis']['bytes_per_device']:.4g}; "
+              f"analytic FLOPs {an['flops_total']:.4g} in all "
+              f"({an['flops_total'] / r['chips']:.4g} a chip), model "
+              f"FLOPs {an['model_flops']:.4g}")
+
+    for arch, shape, kw in DRYRUN_CELLS:
+        ec = ExecConfig(microbatches=kw.get("microbatches", 4))
+        r = run_cell(arch, shape, False, ec=ec,
+                     with_buddy=kw.get("with_buddy", False))
+        show(r)
+        if not (r["collective_bytes"]["total"] and r["memory"][
+                "argument_bytes"] and r["analytic"]["flops_total"]):
+            fail(f"{arch} x {shape}: the dry run read zero collective "
+                 f"bytes, argument bytes or analytic FLOPs")
+
+    arch, S, B = DRYRUN_PREFILL
+    ec = ExecConfig(attn_impl="pallas")
+    r = run_cell(arch, ShapeConfig("chip_prefill", S, B, "prefill"), False,
+                 ec=ec, mesh_shape=(1, 1))
+    show(r)
+    cfg = get_config(arch).replace(param_dtype="bfloat16")
+    model = Model(cfg, ec)
+    params = model.init(torch.Generator(device="cuda").manual_seed(7))
+    toks = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(8), device="cuda")
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(params)) + toks.numel() * 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with FlopCounterMode(display=False) as fc, torch.no_grad(), \
+            recording_flash_shapes(seen):
+        logits, _ = model.prefill(params, {"tokens": toks}, max_len=S)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    real = fc.get_total_flops()
+    traced = r["cost_analysis"]["flops_per_device"]
+    mem = r["memory"]
+    traced_peak = mem["argument_bytes"] + mem["temp_bytes"]
+    print(f"[{tag}] {arch} prefill S {S} x {B} at world 1: traced FLOPs "
+          f"{traced}, the real run's (FlopCounterMode) {real}; F1 launched "
+          f"{launches['flash_attention']} times; argument bytes traced "
+          f"{mem['argument_bytes']}, real parameters and tokens {nbytes}; "
+          f"traced peak (argument + temp) {traced_peak} B, the real call's "
+          f"max_memory_allocated {peak} B, traced / real "
+          f"{traced_peak / peak:.4f}")
+    if not torch.isfinite(logits).all():
+        fail(f"{tag}: the real prefill gave non-finite logits")
+    if traced != real or real == 0:
+        fail(f"{tag}: traced FLOPs {traced} differ from the real run's "
+             f"{real}")
+    if launches["flash_attention"] != cfg.n_layers:
+        fail(f"{tag}: F1 launched {launches['flash_attention']} times, "
+             f"expected {cfg.n_layers}")
+    if mem["argument_bytes"] != nbytes:
+        fail(f"{tag}: traced argument bytes {mem['argument_bytes']} differ "
+             f"from the real {nbytes}")
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for path in PINNED_PATHS:
+        want = {k: PINNED_LAUNCHES[k].get(path, 0) for k in PINNED_LAUNCHES}
+        got = {k: by_path[path][k] for k in PINNED_LAUNCHES}
+        if got != want:
+            fail(f"{tag}: launches on {path} {got}, pinned {want}")
+    print(f"[{tag}] launches on all {len(PINNED_PATHS)} earlier paths as "
+          f"pinned")
+    if FIRST_TOKENS != PINNED_FIRST_TOKENS:
+        fail(f"{tag}: first tokens {FIRST_TOKENS}, pinned "
+             f"{PINNED_FIRST_TOKENS}")
+    print(f"[{tag}] transcripts {json.dumps(TRANSCRIPTS, sort_keys=True)}; "
+          f"first tokens of the model-API paths as pinned")
+    if TRANSCRIPTS != PINNED_TRANSCRIPTS:
+        fail(f"{tag}: transcripts {TRANSCRIPTS}, pinned "
+             f"{PINNED_TRANSCRIPTS}")
+    op_host_ms(torch, rows)
+    return launches
+
+
+def op_host_ms(torch, rows: dict) -> None:
+    """F1's and S1's host issue time a call through their torch operators
+    (the model's entry points) beside their wrappers' in the same call,
+    at the main shapes; added to their rows of the kernels line."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as ms
+    g = torch.Generator(device="cuda").manual_seed(9)
+    B, Sq, Sk, H, Hkv, hd = FLASH_SHAPES[FLASH_MAIN]
+    q = torch.randn((B, Sq, H, hd), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((B, Sk, Hkv, hd), generator=g, device="cuda")
+            .bfloat16() for _ in range(2))
+    b, S, di, ds = SCAN_SHAPES[SCAN_MAIN]
+    x = torch.randn((b, S, di), generator=g, device="cuda")
+    dt = torch.rand((b, S, di), generator=g, device="cuda") * 0.1
+    Bm, Cm = (torch.randn((b, S, ds), generator=g, device="cuda")
+              for _ in range(2))
+    A = -torch.rand((di, ds), generator=g, device="cuda")
+    for name, wrapper, op in (
+            ("flash_attention",
+             lambda: fa.flash_attention_kernel(q, k, v, causal=True),
+             lambda: fa.flash_attention(q, k, v, causal=True)),
+            ("selective_scan",
+             lambda: ms.selective_scan_kernel(x, dt, Bm, Cm, A),
+             lambda: ms.mamba_scan(x, dt, Bm, Cm, A))):
+        with torch.no_grad():
+            w_ms = timed(wrapper)[1]
+            o_ms = timed(op)[1]
+            if not all(torch.equal(a, c) for a, c in zip(
+                    torch.utils._pytree.tree_leaves(wrapper()),
+                    torch.utils._pytree.tree_leaves(op()))):
+                fail(f"{name}: the torch operator's output differs from "
+                     f"the wrapper's")
+        rows[name]["op_host_ms"] = o_ms
+        print(f"[dryrun] {name}: host issue {o_ms:.4f} ms a call through "
+              f"torch.ops.repro_torch.{name}, {w_ms:.4f} ms through the "
+              f"wrapper alone (pinned: {WRAPPER_HOST_MS[name]} ms); "
+              f"outputs bit-identical")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail("src/repro_torch not found beside chip_smoke.py")
@@ -2096,6 +2342,8 @@ def main() -> int:
     by_path["serve-seamless-m4t-medium"] = phase_serve_encdec(torch,
                                                               flash_seen)
     by_path["serve-llava-next-34b"] = phase_serve_vlm(torch, flash_seen)
+    by_path["dryrun-qwen2-7b-prefill"] = phase_dryrun(torch, rows, by_path,
+                                                      flash_seen)
     unchecked = sorted(flash_seen - flash_checked)
     if unchecked:
         fail(f"the serving paths gave F1 cases that [flash] did not hold "
@@ -2117,7 +2365,8 @@ def main() -> int:
                                     "serve-cluster-paper-demo",
                                     "serve-zamba2-7b", "serve-olmoe-1b-7b",
                                     "serve-seamless-m4t-medium",
-                                    "serve-llava-next-34b"],
+                                    "serve-llava-next-34b",
+                                    "dryrun-qwen2-7b-prefill"],
                 "selective_scan": ["serve-falcon-mamba-7b"]}
     for name, paths in required.items():
         for path in paths:

@@ -10,9 +10,17 @@
                     so neither layout is copied.
   - CPU tensors  -> the plain PyTorch version (`ref.flash_attention_ref`)
 
-Tensors on any other device raise. Both routes go through an autograd
-Function whose backward raises: the reference defines no VJP for its
-kernel, so the port does not silently drop attention from a gradient.
+Tensors on any other device raise, but for meta tensors, which get the
+fake implementation (torch registers it as the operator's meta kernel).
+Both routes are one torch operator,
+`torch.ops.repro_torch.flash_attention`, so that a trace and
+`torch.utils.flop_counter` see F1 as one op: a fake tensor (a dry run,
+`launch/dryrun.py`) gets its output's shape and dtype and nothing else,
+and the flop counter charges it `4·B·H·Sq·Sk·hd`, halved when causal with
+Sq == Sk (`models/flops.py`'s `attn_flops` with flash). The operator runs
+inside an autograd Function whose backward raises: the reference defines
+no VJP for its kernel, so the port does not silently drop attention from
+a gradient.
 
 DTensors (a model under a mesh) go through `sharding.partition.
 local_call`: each rank runs the route above on its own lanes and heads
@@ -26,6 +34,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ...device import is_dtensor, require_local
 from ._build import KERNELS
@@ -174,12 +183,37 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     return _launch(q, k, v, out, causal)
 
 
-def _forward(q, k, v, causal: bool) -> torch.Tensor:
+def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool) -> torch.Tensor:
     if q.is_cuda:
         return flash_attention_kernel(q, k, v, causal=causal)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
     raise RuntimeError(f"no flash-attention kernel for device {q.device}")
+
+
+_op = torch.library.custom_op("repro_torch::flash_attention", _route,
+                              mutates_args=())
+
+
+@_op.register_fake
+def _(q, k, v, causal):
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, causal, *args, **kwargs) -> int:
+    """Scores and AV of every (lane, head, query, key): 4·B·H·Sq·Sk·hd,
+    halved when causal with Sq == Sk, as `flops.attn_flops` charges the
+    flash kernel."""
+    B, Sq, H, hd = q_shape
+    core = 4 * B * H * Sq * k_shape[1] * hd
+    return core // 2 if causal and Sq == k_shape[1] else core
+
+
+def _forward(q, k, v, causal):
+    """The operator on plain tensors: F1's route for their device."""
+    return _op(q, k, v, causal)
 
 
 class _ForwardOnly(torch.autograd.Function):
@@ -239,12 +273,11 @@ def kv_for_heads(q, k, v, specs, coord):
     h0, H = _head_range(q.shape[2], specs[0][2], coord)
     g0, Hkv = _head_range(k.shape[2], specs[1][2], coord)
     rep, hl = H // Hkv, q.shape[2]
-    if h0 % rep == 0 and hl % rep == 0:
-        lo, hi = h0 // rep - g0, (h0 + hl) // rep - g0
-        idx = None
-    else:
-        idx = torch.arange(h0, h0 + hl, device=k.device) // rep - g0
-        lo, hi = int(idx.min()), int(idx.max()) + 1
+    # the K/V heads [lo, hi) of this rank's q heads, from the ints alone
+    # (no value of a tensor is read: a dry run's tensors have none)
+    lo, hi = h0 // rep - g0, (h0 + hl - 1) // rep + 1 - g0
+    idx = None if h0 % rep == 0 and hl % rep == 0 else \
+        torch.arange(h0, h0 + hl, device=k.device) // rep - g0
     if lo < 0 or hi > k.shape[2]:
         raise ValueError(f"q heads [{h0}, {h0 + hl}) read K/V heads this "
                          f"rank does not hold ([{g0}, {g0 + k.shape[2]}))")

@@ -9,7 +9,14 @@ A (di, ds) and returns (y (b, S, di), h_final (b, di, ds) float32):
                     or launch failure raises
   - CPU tensors  -> the plain PyTorch version (`ref.selective_scan_ref`)
 
-Tensors on any other device raise. Both routes go through an autograd
+Tensors on any other device raise, but for meta tensors, which get the
+fake implementation (torch registers it as the operator's meta kernel).
+Both routes are one torch operator,
+`torch.ops.repro_torch.selective_scan`, so that a trace and
+`torch.utils.flop_counter` see S1 as one op: a fake tensor (a dry run,
+`launch/dryrun.py`) gets its outputs' shapes and dtypes and nothing else,
+and the flop counter charges it `8·b·S·di·ds` (the scan term of
+`models/flops.py`'s `mamba_flops`). The operator runs inside an autograd
 Function whose backward raises: the reference defines no VJP for its
 kernel, so the port does not silently drop the scan from a gradient.
 
@@ -21,6 +28,7 @@ exact. The kernel entry point raises on a DTensor.
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ...device import is_dtensor, require_local
 from ._build import KERNELS
@@ -70,12 +78,38 @@ def selective_scan_kernel(x: torch.Tensor, dt: torch.Tensor,
     return y, h
 
 
-def _forward(x, dt, B, C, A):
+def _route(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+           C: torch.Tensor, A: torch.Tensor
+           ) -> tuple[torch.Tensor, torch.Tensor]:
     if x.is_cuda:
         return selective_scan_kernel(x, dt, B, C, A)
     if x.device.type == "cpu":
         return selective_scan_ref(x, dt, B, C, A)
     raise RuntimeError(f"no selective-scan kernel for device {x.device}")
+
+
+_op = torch.library.custom_op("repro_torch::selective_scan", _route,
+                              mutates_args=())
+
+
+@_op.register_fake
+def _(x, dt, B, C, A):
+    return (x.new_empty(x.shape),
+            x.new_empty((x.shape[0], x.shape[2], B.shape[2]),
+                        dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.selective_scan)
+def _flops(x_shape, dt_shape, B_shape, *args, **kwargs) -> int:
+    """dA, dBx, h and y of every (lane, step, channel, state): 8·b·S·di·ds,
+    the scan term of `flops.mamba_flops`."""
+    b, S, di = x_shape
+    return 8 * b * S * di * B_shape[2]
+
+
+def _forward(x, dt, B, C, A):
+    """The operator on plain tensors: S1's route for their device."""
+    return _op(x, dt, B, C, A)
 
 
 class _ForwardOnly(torch.autograd.Function):

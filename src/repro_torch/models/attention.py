@@ -21,7 +21,7 @@ import torch
 
 from ..device import is_dtensor
 from ..kernels.flash_attention import ops as fa_ops
-from ..sharding.partition import local_offsets, shard_constraint
+from ..sharding.partition import local_offsets, shard_constraint, unflatten
 from .config import ModelConfig
 from .layers import _init, apply_rope, rmsnorm, rmsnorm_init, torch_dtype
 
@@ -59,7 +59,7 @@ def _heads(p, xc, cfg: ModelConfig, name: str, n_heads: int, positions,
     t = xc @ p["w" + name].to(compute_dtype)
     if cfg.qkv_bias:
         t = t + p["b" + name].to(compute_dtype)
-    t = t.reshape(B, S, n_heads, cfg.head_dim)
+    t = unflatten(t, -1, (n_heads, cfg.head_dim))
     if cfg.qk_norm and name != "v":
         t = rmsnorm(p[name + "_norm"], t, cfg.norm_eps)
     if positions is not None and name != "v":
@@ -135,11 +135,8 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset=0,
     denom = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
     for idx in range(n_chunks):
         sl = slice(idx * kv_chunk, (idx + 1) * kv_chunk)
-        # the GQA expansion happens before the heads constraint: K/V are
-        # replicated over the model axis, so each rank expands only its
-        # own q heads' slice
-        kb = shard_constraint(_repeat_kv(k[:, sl], n_rep).float(), *Q_AXES)
-        vb = shard_constraint(_repeat_kv(v[:, sl], n_rep).float(), *Q_AXES)
+        kb = _repeat_kv(k[:, sl], n_rep).float()
+        vb = _repeat_kv(v[:, sl], n_rep).float()
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kb) * scale
         if causal:
             kpos = idx * kv_chunk + torch.arange(kv_chunk,
@@ -184,13 +181,22 @@ def _out(p, o: torch.Tensor, cfg: ModelConfig, compute_dtype):
 
 
 def _inner(impl: str, q, k, v, causal: bool) -> torch.Tensor:
-    if impl == "naive":
-        return naive_attention(q, k, v, causal=causal)
-    if impl == "chunked":
-        return chunked_attention(q, k, v, causal=causal)
     if impl == "pallas":
         return fa_ops.flash_attention(q, k, v, causal=causal)
-    raise ValueError(impl)
+    if impl not in ("naive", "chunked"):
+        raise ValueError(impl)
+    fn = naive_attention if impl == "naive" else chunked_attention
+    if is_dtensor(q):
+        # each rank's lanes and q heads over the K/V heads they read, as
+        # F1 runs: the einsums flatten (lane, head) into one batch dim,
+        # which DTensor cannot split over two mesh axes (torch 2.11)
+        from ..sharding.partition import local_call
+        return local_call(
+            lambda q, k, v, *, specs, coord: fn(
+                q, *fa_ops.kv_for_heads(q, k, v, specs, coord),
+                causal=causal),
+            (q, k, v), (Q_AXES, KV_AXES, KV_AXES), ((Q_AXES, q.shape),))
+    return fn(q, k, v, causal=causal)
 
 
 def attention_with_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -240,13 +246,11 @@ def cross_decode_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     in the compute dtype."""
     B = x.shape[0]
     q = _project_q(p, x, cfg, None, compute_dtype)
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    kf = _repeat_kv(cross_k.to(compute_dtype), H // Hkv)
-    vf = _repeat_kv(cross_v.to(compute_dtype), H // Hkv)
-    s = torch.einsum("bqhd,bkhd->bhqk", q, kf).float() / math.sqrt(hd)
-    w = torch.softmax(s, dim=-1).to(compute_dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", w, vf).reshape(B, 1, H * hd)
-    return o @ p["wo"].to(compute_dtype)
+    # the naive core, non-causal: float32 scores, the weights in q's dtype
+    o = _inner("naive", q, cross_k.to(compute_dtype),
+               cross_v.to(compute_dtype), False)
+    return o.reshape(B, 1, cfg.n_heads * cfg.head_dim) \
+        @ p["wo"].to(compute_dtype)
 
 
 def _write_local(cache, pos: torch.Tensor, new) -> None:

@@ -109,8 +109,14 @@ def embed(p: Params, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
     # Under a mesh: F.embedding, not `table[tokens]`, whose backward by a
     # split index fails in DTensor's rule for index_put (torch 2.11); and
     # the rows laid out by lane at once, since a vocab-split table gives a
-    # pending masked sum that DTensor cannot reduce into a split dim
-    x = F.embedding(tokens.long(), p["table"].to(compute_dtype))
+    # pending masked sum that DTensor cannot reduce into a split dim. A
+    # table trained through the lookup is gathered over the vocabulary
+    # first: the backward of that masked sum meets a pending sum, which
+    # DTensor (torch 2.11) cannot turn into it
+    table = p["table"].to(compute_dtype)
+    if table.requires_grad:
+        table = shard_constraint(table, None, "embed")
+    x = F.embedding(tokens.long(), table)
     return shard_constraint(x, "batch", None, None)
 
 

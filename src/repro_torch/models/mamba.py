@@ -33,6 +33,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..device import is_dtensor
 from ..kernels.mamba_scan import ops as scan_ops
 from ..sharding.partition import shard_constraint
 from .config import ModelConfig
@@ -88,7 +89,9 @@ def _conv_tail(pre: torch.Tensor, K: int) -> torch.Tensor:
     input (B,S,C), in float32. A prompt shorter than K-1 is left-padded
     with the zeros the causal conv starts from (ROADMAP C3)."""
     tail = pre[:, max(pre.shape[1] - (K - 1), 0):].float()
-    return F.pad(tail, (0, 0, K - 1 - tail.shape[1], 0))
+    pad = K - 1 - tail.shape[1]
+    # no pad of 0 rows: DTensor's rule for it fails on a split tensor
+    return F.pad(tail, (0, 0, pad, 0)) if pad else tail
 
 
 def _chunk_scan_m1(dA, dBx, h0):
@@ -328,13 +331,32 @@ def _mamba2_inputs(p, x, cfg: ModelConfig, cd, conv_state=None):
 
 def _ssd(xi, dt, Bc, Cc, A, cfg: ModelConfig, c: int, cd):
     """The reference's chunked SSD from h = 0: (y (B,S,di) in `cd`,
-    h_final (B,nh,hp,ds) float32)."""
+    h_final (B,nh,hp,ds) float32). Under a mesh it runs through
+    `local_call` on each rank's lanes and heads (its einsums flatten
+    lanes and heads into one batch dim, which DTensor cannot split over
+    two mesh axes in torch 2.11); the SSD is per (lane, head), so it is
+    exact."""
+    if not is_dtensor(xi):
+        return _ssd_local(xi, dt, Bc, Cc, A, c, cd)
+    from ..sharding.partition import local_call
     B, S, di = xi.shape
-    nh, hp = cfg.n_ssm_heads, cfg.ssm_head_dim
+    xa, bc = ("batch", None, "heads"), ("batch", None, None)
+    return local_call(
+        lambda *ts, specs, coord: _ssd_local(*ts, c, cd),
+        (xi, dt, Bc, Cc, A), (xa, xa, bc, bc, ("heads",)),
+        ((xa, xi.shape), (("batch", "heads", None, None),
+                          (B, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                           cfg.ssm_state))))
+
+
+def _ssd_local(xi, dt, Bc, Cc, A, c: int, cd):
+    """`_ssd` on plain tensors; the heads are dt's (B,S,nh)."""
+    B, S, di = xi.shape
+    nh, ds = dt.shape[2], Bc.shape[2]
+    hp = di // nh
     xh = xi.reshape(B, S, nh, hp).float()
     dtf, Bf, Cf = dt.float(), Bc.float(), Cc.float()
-    h = torch.zeros((B, nh, hp, cfg.ssm_state), dtype=torch.float32,
-                    device=xi.device)
+    h = torch.zeros((B, nh, hp, ds), dtype=torch.float32, device=xi.device)
     ys = []
     for j in range(0, S, c):
         y, h = _ssd_chunk(xh[:, j:j + c], dtf[:, j:j + c], Bf[:, j:j + c],

@@ -14,18 +14,19 @@ reference's parameters (or whole train state) across.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
-from ..device import resolve, to_device
+from ..device import is_dtensor, resolve, to_device
 from ..tree import tree_map
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
-from .config import ModelConfig
+from .config import ModelConfig, ShapeConfig
 from .layers import (dense, dense_init, embed, embedding_init, mlp, rmsnorm,
                      rmsnorm_init, torch_dtype, unembed)
 from .transformer import (ExecConfig, _layer, _n_stacked,
@@ -58,10 +59,21 @@ def masked_chunked_xent(table: torch.Tensor, x: torch.Tensor,
         logits = xc.to(compute_dtype) @ tbl.T
         lf = logits.float()
         lse = torch.logsumexp(lf, dim=-1)
-        gold = torch.gather(lf, -1, lc.clamp(min=0)[..., None])[..., 0]
+        gold = _gold(lf, lc.clamp(min=0))
         tot = tot + ((lse - gold) * valid).sum()
         cnt = cnt + valid.sum()
     return tot / torch.clamp(cnt, min=1.0)
+
+
+def _gold(lf: torch.Tensor, lc: torch.Tensor) -> torch.Tensor:
+    """The logits `lf` (B,c,V) at the labels `lc` (B,c). Under a mesh a
+    masked sum over the vocabulary, the gather's value bit for bit (every
+    other term is 0): with the vocabulary split, DTensor's gather leaves a
+    pending masked sum that it fails to reduce into the split batch."""
+    if is_dtensor(lf):
+        hit = torch.arange(lf.shape[-1], device=lf.device) == lc[..., None]
+        return torch.where(hit, lf, 0.0).sum(-1)
+    return torch.gather(lf, -1, lc[..., None])[..., 0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +97,18 @@ class Model:
         if cfg.family == "encdec":
             params["ln_enc"] = rmsnorm_init(cfg.d_model, dtype, gen.device)
         return params
+
+    def abstract_params(self, *, device=None, mode=None) -> Params:
+        """The parameter tree as fake tensors on `device` (`cuda` unless
+        named): the leaves, shapes and dtypes of `init`'s, no storage (the
+        reference's `abstract_params`). Drawn by `init` under `mode`, a
+        `FakeTensorMode` (a new one if None); a trace of a step on them
+        runs under the same mode."""
+        mode = mode or _fake_mode()
+        dev = resolve(device)
+        with mode:
+            params = self.init(torch.Generator())
+            return tree_map(lambda t: t.to(dev), params)
 
     def _embed_inputs(self, params, batch, dt):
         """Token embedding; in a vlm model with `frontend_emb` (B,nf,D) in
@@ -160,6 +184,45 @@ class Model:
         return family(cfg).init_state(cfg, batch, max_len,
                                       torch_dtype(cfg.compute_dtype),
                                       resolve(device))
+
+    def input_specs(self, shape: ShapeConfig, *, abstract: bool = True,
+                    device=None, mode=None) -> dict:
+        """The inputs of the step of a shape cell (the reference's
+        `input_specs`): train -> {"tokens", "labels"} (+ "enc_emb" of an
+        encdec model, "frontend_emb" of a vlm one), prefill -> {"tokens"}
+        (+ the same), decode -> {"token", "pos", "state"} with the decode
+        state of max_len S. Tokens and positions int32, embeddings in the
+        compute dtype, on `device` (`cuda` unless named). `abstract`: fake
+        tensors made under `mode` (a new `FakeTensorMode` if None), no
+        storage; else zeros."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.compute_dtype)
+        B, S = shape.global_batch, shape.seq_len
+        dev = resolve(device)
+        ctx = (mode or _fake_mode()) if abstract else contextlib.nullcontext()
+
+        def mk(shp, dtype):
+            return torch.zeros(shp, dtype=dtype, device=dev)
+
+        def frontend_inputs(d):
+            if cfg.family == "encdec":
+                d["enc_emb"] = mk((B, cfg.enc_seq_len, cfg.d_model), dt)
+            elif cfg.family == "vlm":
+                nf = min(cfg.n_frontend_tokens, S // 2)
+                d["frontend_emb"] = mk((B, nf, cfg.d_model), dt)
+            return d
+
+        with ctx:
+            if shape.kind == "train":
+                return frontend_inputs({"tokens": mk((B, S), torch.int32),
+                                        "labels": mk((B, S), torch.int32)})
+            if shape.kind == "prefill":
+                return frontend_inputs({"tokens": mk((B, S), torch.int32)})
+            if shape.kind == "decode":
+                return {"token": mk((B, 1), torch.int32),
+                        "pos": mk((), torch.int32),
+                        "state": self.init_decode_state(B, S, device=dev)}
+        raise ValueError(shape.kind)
 
     def decode_state_specs(self, rules):
         """PartitionSpec tree matching init_decode_state's structure:
@@ -340,6 +403,11 @@ class Model:
             for k, v in st.items():
                 states[k][i] = v
         return x
+
+
+def _fake_mode():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    return FakeTensorMode()
 
 
 def _kv_caches(kvs: list, max_len: int) -> dict:

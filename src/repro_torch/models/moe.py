@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import is_dtensor
 from ..sharding.partition import shard_constraint
 from .config import ModelConfig
 from .layers import _init
@@ -113,12 +114,49 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
     # (G,g,E,C) x (G,g,D) -> (G,E,C,D): routing groups over the batch
     # axes, experts over the expert axis
-    xe = torch.einsum("Gtec,Gtd->Gecd", dispatch.to(dt), xt)
+    xe = _dispatch(dispatch.to(dt), xt)
     xe = shard_constraint(xe, "batch", "expert", None, None)
-    gt = torch.einsum("Gecd,edf->Gecf", xe, p["wi_gate"].to(dt))
-    up = torch.einsum("Gecd,edf->Gecf", xe, p["wi_up"].to(dt))
-    h = F.silu(gt) * up
-    ye = torch.einsum("Gecf,efd->Gecd", h, p["wo"].to(dt))
+    ye = _experts(xe, p["wi_gate"].to(dt), p["wi_up"].to(dt),
+                  p["wo"].to(dt))
     ye = shard_constraint(ye, "batch", "expert", None, None)
-    y = torch.einsum("Gtec,Gecd->Gtd", combine.to(dt), ye)
+    y = _combine(combine.to(dt), ye)
     return y.reshape(B, S, D), aux.float()
+
+
+def _experts(xe, wi_gate, wi_up, wo):
+    """Each expert's gated MLP on its slots: (G,E,C,D) -> (G,E,C,D).
+    Under a mesh it runs through `local_call` on each rank's groups and
+    experts, the weights gathered over their embed axis (the FSDP
+    gather): DTensor (torch 2.11) fails to lay out the einsums' permuted
+    results. Per (group, expert) it is exact."""
+    if not is_dtensor(xe):
+        gt = torch.einsum("Gecd,edf->Gecf", xe, wi_gate)
+        up = torch.einsum("Gecd,edf->Gecf", xe, wi_up)
+        return torch.einsum("Gecf,efd->Gecd", F.silu(gt) * up, wo)
+    from ..sharding.partition import local_call
+    xa, wa = ("batch", "expert", None, None), ("expert", None, None)
+    return local_call(
+        lambda *ts, specs, coord: _experts(*ts).contiguous(),
+        (xe, wi_gate, wi_up, wo), (xa, wa, wa, wa), ((xa, xe.shape),))
+
+
+# Under a mesh the routing products are matmuls over (expert, slot)
+# flattened expert-major: an einsum may flatten them slot-major, which
+# DTensor (torch 2.11) cannot do with the experts split; without a mesh
+# the einsums stay, whose bits the port's transcripts were taken with
+
+def _dispatch(dispatch: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
+    """(G,g,E,C) x (G,g,D) -> (G,E,C,D)."""
+    if not is_dtensor(xt):
+        return torch.einsum("Gtec,Gtd->Gecd", dispatch, xt)
+    G, g, E, C = dispatch.shape
+    return (dispatch.reshape(G, g, E * C).transpose(1, 2) @ xt).reshape(
+        G, E, C, xt.shape[-1])
+
+
+def _combine(combine: torch.Tensor, ye: torch.Tensor) -> torch.Tensor:
+    """(G,g,E,C) x (G,E,C,D) -> (G,g,D)."""
+    if not is_dtensor(ye):
+        return torch.einsum("Gtec,Gecd->Gtd", combine, ye)
+    G, g, E, C = combine.shape
+    return combine.reshape(G, g, E * C) @ ye.reshape(G, E * C, ye.shape[-1])

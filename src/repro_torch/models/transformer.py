@@ -32,7 +32,7 @@ from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
 from .config import ModelConfig
-from ..sharding.partition import shard_constraint
+from ..sharding.partition import recompute_context, shard_constraint
 from ..tree import tree_map
 from .layers import mlp, mlp_init, rmsnorm, rmsnorm_init
 
@@ -48,10 +48,15 @@ class ExecConfig:
     ssm path ignores the knob; ROADMAP C5). Mamba2 layers run the chunked
     SSD under every value, as in the reference. `seq_parallel` keeps the
     residual stream of a dense block sequence-sharded between its
-    sublayers under a mesh (a no-op without one)."""
+    sublayers under a mesh (a no-op without one). `microbatches` is read
+    by the dry run's train step alone (`launch/dryrun.py`: gradient
+    accumulation), as in the reference. The reference's `scan_layers`
+    has no counterpart: the port's layer loop is Python, so a trace of it
+    is unrolled."""
     attn_impl: str = "chunked"        # naive | chunked | pallas (F1, S1)
     remat_policy: str = "full"        # none | full
     xent_chunks: int = 4
+    microbatches: int = 1             # grad-accumulation inner loop
     seq_parallel: bool = False        # sequence-shard the residual stream
     moe_group: int = 256              # MoE routing group size (tokens)
 
@@ -353,7 +358,8 @@ def _run_layers(body, x, layers, ec: ExecConfig):
     for i in range(_n_stacked(layers)):
         lp = _layer(layers, i)
         if ec.remat_policy == "full" and torch.is_grad_enabled():
-            x, a = checkpoint(body, x, lp, use_reentrant=False)
+            x, a = checkpoint(body, x, lp, use_reentrant=False,
+                              context_fn=recompute_context)
         else:
             x, a = body(x, lp)
         if a is not None:

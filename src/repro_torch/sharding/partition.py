@@ -59,6 +59,17 @@ def constraint_scope(mesh, rules: ShardingRules):
         _CTX.reset(tok)
 
 
+def recompute_context():
+    """`torch.utils.checkpoint`'s `context_fn`: the recomputation of a
+    checkpointed block in the backward pass runs in the constraint scope
+    its forward ran in (on a card the autograd engine recomputes on its
+    device thread, which does not inherit the scope)."""
+    ctx = _CTX.get()
+    return contextlib.nullcontext(), (contextlib.nullcontext()
+                                      if ctx is None
+                                      else constraint_scope(*ctx))
+
+
 def _divisible(spec: P, shape, mesh) -> P:
     """Drop mesh axes that do not divide the corresponding dim evenly."""
     out = []
@@ -120,6 +131,27 @@ def shard_constraint(x: torch.Tensor, *logical_axes) -> torch.Tensor:
             f"step was never distributed")
     spec = _divisible(rules.spec(*logical_axes), x.shape, mesh)
     return x.redistribute(mesh, placements(spec, mesh))
+
+
+def unflatten(t: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:
+    """`t.unflatten(dim, sizes)`. A DTensor whose shards of `dim` would
+    not each hold whole rows of the split (28 heads over a 16-way axis)
+    has that dim gathered first: DTensor refuses such a split, where the
+    reference's compiler pads it, and the rows stay replicated."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        d = dim % t.dim()
+        mesh, pl = t.device_mesh, list(t.placements)
+        cut = [i for i, p in enumerate(pl)
+               if isinstance(p, Shard) and p.dim == d]
+        n = 1
+        for i in cut:
+            n *= mesh.size(i)
+        if sizes[0] % n:
+            for i in cut:
+                pl[i] = Replicate()
+            t = t.redistribute(mesh, pl)
+    return t.unflatten(dim, sizes)
 
 
 def state_shardings(mesh, state, rules: ShardingRules):
