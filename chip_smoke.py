@@ -3,6 +3,10 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
+  0. [reprolint] the port's static analysis, `python -m
+     repro_torch.analysis --strict`, in a subprocess on this host's
+     Python (no card, no torch): its summary line and any stale entry of
+     `reprolint-torch-baseline.json` printed, a non-zero exit a failure;
   1. build every kernel of the port from its source, one `nvcc` per
      source, all started together: the checksum kernels (K1 tile digests,
      K2 whole-leaf digest, K3 dirty-tile gather) from
@@ -65,6 +69,11 @@ Phases (any failure exits non-zero):
      full saves + a process fault under reinit, and delta saves
      (--ckpt-delta-every 4) + a node fault under cr, which reloads from
      files — each faulted run's final state bit-identical to its twin's;
+     after the reinit twin, `models.layers.chunked_unembed_xent` on the
+     card with its trained embedding table (32768, 768) float32, on
+     seeded hidden states (8, 256, 768) and labels drawn from a
+     torch.Generator, held within 1e-5 relative to `cross_entropy` of
+     the full logits and to the trainer's `masked_chunked_xent`;
   4b. [train] the trainer's elastic and gray paths at the same width,
      through the API: the shrink strategy with no spare and a node fault
      (full saves, K2), and a slow rank drained by mitigation — each
@@ -1563,6 +1572,49 @@ def final_digests(ckpt_dir: str) -> dict:
             "digests": {k: m["digest"] for k, m in man.leaves.items()}}
 
 
+XENT_RTOL = 1e-5
+
+
+def phase_xent(torch, ckpt_dir: str) -> None:
+    """The chunked unembedding cross-entropy on the card with the trained
+    paper-demo table, held to the full logits' and the trainer's."""
+    from repro_torch.checkpoint import FileCheckpointer
+    from repro_torch.models.layers import (chunked_unembed_xent,
+                                           cross_entropy, unembed)
+    from repro_torch.models.model import masked_chunked_xent
+    ck = FileCheckpointer(ckpt_dir)
+    _, state = ck.load(ck.steps()[-1], verify=True)
+    emb = {"table": torch.from_numpy(
+        state["params"]["embedding"]["table"].copy()).to("cuda")}
+    V, D = emb["table"].shape
+    # not the train CLI's seed 0: that generator drew the table first, so
+    # its first draws here would be the table's own rows
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((8, 256, D), generator=g, device="cuda")
+    labels = torch.randint(0, V, (8, 256), generator=g, device="cuda")
+    routes = {
+        "chunked_unembed_xent": lambda: chunked_unembed_xent(
+            emb, x, labels, torch.float32),
+        "cross_entropy(unembed)": lambda: cross_entropy(
+            unembed(emb, x, torch.float32), labels),
+        "masked_chunked_xent": lambda: masked_chunked_xent(
+            emb["table"], x, labels, torch.float32),
+    }
+    vals = {k: float(fn()) for k, fn in routes.items()}
+    ms = {k: timed(fn, iters=5, warmup=1)[0] for k, fn in routes.items()}
+    got = vals["chunked_unembed_xent"]
+    rel = max(abs(got - v) / abs(v) for v in vals.values())
+    print(f"[train] xent: table {tuple(emb['table'].shape)} "
+          f"{emb['table'].dtype}, x {tuple(x.shape)}: " + ", ".join(
+              f"{k} {v:.7f} ({ms[k]:.3f} ms)" for k, v in vals.items())
+          + f"; max relative difference {rel:.3g} (bound {XENT_RTOL:g})")
+    if not all(v == v and abs(v) != float("inf") for v in vals.values()):
+        fail(f"the cross-entropy routes gave non-finite values: {vals}")
+    if rel > XENT_RTOL:
+        fail(f"chunked_unembed_xent differs from the full logits' or the "
+             f"trainer's cross-entropy by {rel:.3g} relative")
+
+
 def phase_train(torch, ops) -> tuple[dict, dict]:
     """Phase 3: the main path at full width, each fault run vs its twin.
     Returns ({run name: kernel launches over its fault and twin runs},
@@ -1603,6 +1655,8 @@ def phase_train(torch, ops) -> tuple[dict, dict]:
                 fail(f"{tag}: final_step {summary['final_step']}")
             if not twin and len(summary["recoveries"]) != 1:
                 fail(f"{tag}: expected one recovery")
+            if twin and name == "reinit-process-full":
+                phase_xent(torch, d)
             shutil.rmtree(d)
         if out[False] != out[True]:
             fail(f"{name}: final state differs from the fault-free twin")
@@ -2263,6 +2317,23 @@ def op_host_ms(torch, rows: dict) -> None:
               f"outputs bit-identical")
 
 
+def phase_reprolint() -> None:
+    """Phase 0: the port's reprolint, `--strict`, on this host's Python."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--strict"],
+        cwd=HERE, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=SRC))
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if line.startswith("reprolint:"):
+            print(f"[reprolint] {line}")
+    print(f"[reprolint] exit {proc.returncode} in "
+          f"{time.monotonic() - t0:.2f} s")
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+        fail("python -m repro_torch.analysis --strict failed")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail("src/repro_torch not found beside chip_smoke.py")
@@ -2282,6 +2353,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"[card] {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
+    phase_reprolint()
 
     t0 = time.monotonic()
     builds = {"checksum": cs_build.KERNELS,

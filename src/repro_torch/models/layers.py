@@ -122,3 +122,43 @@ def embed(p: Params, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 def unembed(p: Params, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     return x.to(compute_dtype) @ p["table"].to(compute_dtype).T
+
+
+# --------------------------------------------------- chunked cross-entropy
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in fp32. logits: (B,S,V); labels: (B,S);
+    with a mask, the masked mean over max(sum(mask), 1)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        m = mask.to(torch.float32)
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return nll.mean()
+
+
+def chunked_unembed_xent(emb_p: Params, x: torch.Tensor,
+                         labels: torch.Tensor, compute_dtype,
+                         n_chunks: int = 4) -> torch.Tensor:
+    """Cross-entropy without materializing full (B,S,V) logits.
+
+    Loops over sequence chunks (the reference's `lax.scan`); each chunk's
+    logits live only inside one iteration, cutting peak activation
+    memory by n_chunks. The sum is carried in fp32.
+    """
+    B, S, _ = x.shape
+    if S % n_chunks != 0:
+        return cross_entropy(unembed(emb_p, x, compute_dtype), labels)
+    c = S // n_chunks
+    table = emb_p["table"].to(compute_dtype)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        lf = (x[:, i * c:(i + 1) * c].to(compute_dtype) @ table.T).float()
+        lc = labels[:, i * c:(i + 1) * c].long()
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, lc[..., None])[..., 0]
+        total = total + (lse - gold).sum()
+    return total / (B * S)

@@ -12,6 +12,14 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
 
+# the port's reprolint: stdlib only, it runs on a host without torch
+ANALYSIS_MODULES = [
+    "repro_torch.analysis", "repro_torch.analysis.__main__",
+    "repro_torch.analysis.source", "repro_torch.analysis.protocol",
+    "repro_torch.analysis.hook_points", "repro_torch.analysis.locks",
+    "repro_torch.analysis.determinism", "repro_torch.analysis.registry",
+]
+
 SLICE_MODULES = [
     "repro_torch", "repro_torch.device", "repro_torch.tree",
     "repro_torch.kernels.checksum", "repro_torch.kernels.checksum.ref",
@@ -45,7 +53,9 @@ SLICE_MODULES = [
     "repro_torch._lazy",
     "repro_torch.sharding", "repro_torch.sharding.rules",
     "repro_torch.sharding.partition", "repro_torch.launch.mesh",
-]
+    "repro_torch.models.flops", "repro_torch.launch.dryrun",
+    "repro_torch.launch.trace_analysis",
+] + ANALYSIS_MODULES
 
 # the control plane: the root, its daemons, the transport, the simulator
 # and the scenario engine start without torch (only workers import it)
@@ -54,7 +64,7 @@ TORCH_FREE = [
     "repro_torch.runtime.transport", "repro_torch.sim",
     "repro_torch.scenarios.engine", "repro_torch.kernels.checksum._build",
     "repro_torch._lazy",
-]
+] + ANALYSIS_MODULES
 
 _CHILD = r"""
 import importlib, sys, tempfile, json
