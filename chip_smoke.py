@@ -87,6 +87,29 @@ Phases (any failure exits non-zero):
      the unsharded reinit run's digests bit for bit, each run's median
      step time printed (one card holds one NCCL rank: the multi-rank ring
      of shards is tested on the CPU, tests/test_torch_sharding.py);
+  4d. [train-families] the trainer through the API on the moe, ssm,
+     hybrid and vlm families at batch 8 x seq 256, bf16 compute, float32
+     parameters and AdamW moments, full saves (K2): olmoe-1b-7b (2 of 16
+     layers) under reinit with a process fault (the buddy memory
+     restore), falcon-mamba-7b (2 of 64) under cr with a node fault (the
+     reload from files), zamba2-7b (7 of 81: one group of 6 Mamba2 layers
+     with its shared attention block, and one tail layer) under reinit
+     with a process fault, all three at published width, vocabulary and
+     heads; llava-next-34b reduced (one layer at published width is 17.7
+     GB of state, and a save holds five copies) under reinit with a
+     process fault, through the trainer's zero gradient for its unreached
+     `frontend_proj` (ROADMAP C12). 5 steps, one save (step 3), the fault
+     at the top of step 4: each fault run rolls back to step 3 and ends
+     on its fault-free twin's final state bit for bit. Each run prints its
+     parameters and state bytes, the disk free before it (a run the disk
+     cannot hold fails), `max_memory_allocated`, its median step, each
+     save's seconds and each recovery's phases;
+  4e. [train-strategies] phase 4's paper-demo run (the same fault draw)
+     through the API under ulfm and replica, each with a process and a
+     node fault: each resumes at the fail step (replica by promoting its
+     warm shadow) and ends on phase 4's reinit twin's final state bit for
+     bit (fault-free training does not depend on the strategy); the same
+     readings per run;
   5. a sparse-dirt checkpoint: FileCheckpointer(delta_every=4) on the
      full paper-demo train state with a 5 % window of every leaf changed
      between saves, so the delta save gathers dirty tiles on the card;
@@ -198,7 +221,8 @@ Phases (any failure exits non-zero):
   9. the kernel report. Launches are counted per path: the counts are
      set to 0 just before each path is driven and read just after it.
      K2 must launch on the full-save runs (the shrink, gray and sharded
-     runs included), K1 on the delta-cadence runs and in every runtime run,
+     runs, every [train-families] and [train-strategies] run included),
+     K1 on the delta-cadence runs and in every runtime run,
      K3 (which training never reaches: AdamW dirties every tile) on the
      sparse-dirt saves, F1 on both dense serving paths and the sharded
      one, the zamba2-7b,
@@ -211,6 +235,7 @@ Phases (any failure exits non-zero):
      `launches_by_path` gives each path's launches, `sharded-train` and
      `sharded-serve` included.
 
+A `[time]` line gives each phase's seconds, and the script's in all.
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 repository around it, the script fails before printing any result.
@@ -362,6 +387,17 @@ LOGIT_TOL_F32 = 1e-3
 # unembedding, so greedy decode repeats the last prompt token whatever the
 # attention computes; the API checks scale it so transcripts depend on it
 TABLE_SCALE = 0.05
+
+
+T_START = time.monotonic()
+
+
+@contextlib.contextmanager
+def phase_time(name: str):
+    """Print the seconds the block took, as `[time] name: N s`."""
+    t0 = time.monotonic()
+    yield
+    print(f"[time] {name}: {time.monotonic() - t0:.1f} s")
 
 
 def fail(msg: str):
@@ -1809,6 +1845,208 @@ def phase_train_elastic(torch, device: str = "cuda", batch: int = 8,
     return launches
 
 
+#: [train-families]: (path, arch, depth, strategy, fault). Published
+#: width, vocabulary and heads with only the depth cut (None: `reduced`)
+TRAIN_FAMILIES = (
+    ("train-olmoe-1b-7b", "olmoe-1b-7b", 2, "reinit", "process"),
+    ("train-falcon-mamba-7b", "falcon-mamba-7b", 2, "cr", "node"),
+    ("train-zamba2-7b", "zamba2-7b", 7, "reinit", "process"),
+    ("train-llava-next-34b", "llava-next-34b", None, "reinit", "process"),
+)
+#: a run of 5 steps with a save every 3 writes one save (step 3): a save
+#: of several GB is most of a run's time. The fault at the top of step 4
+#: rolls back to step 3's save, and step 4 is done again
+FAMILY_STEPS, FAMILY_CKPT_EVERY, FAMILY_FAIL_STEP = 5, 3, 4
+#: [train-strategies]: (strategy, fault kind) on [train]'s paper-demo run
+TRAIN_STRATEGIES = (("ulfm", "process"), ("ulfm", "node"),
+                    ("replica", "process"), ("replica", "node"))
+
+
+def state_digests(state) -> dict:
+    """Leaf digests of a state in memory: `final_digests`' of a save of
+    it (the same keys and wordsum digests, K2's on the card)."""
+    from repro_torch.checkpoint.manifest import flatten_leaves, leaf_digest
+    return {"step": int(state["step"]),
+            "digests": {k: leaf_digest(v)
+                        for k, v in flatten_leaves(state).items()}}
+
+
+def train_run(torch, phase: str, tag: str, trainer) -> dict:
+    """Draw `trainer`'s state, check that the disk holds the run's saves
+    (fails if not), run it timing each save, remove its checkpoint
+    directory; print and return what the run measured, with the final
+    state's digests (taken after the launches are read)."""
+    from repro_torch.tree import tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer.state = trainer.init_state()
+    tc = trainer.tc
+    nparams = sum(t.numel() for t in tree_leaves(trainer.state["params"]))
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(trainer.state))
+    free = shutil.disk_usage(WORK).free
+    # the newest `keep` saves stay, and one more until the next is written
+    need = min(tc.total_steps // tc.ckpt_every,
+               trainer.file_ckpt.keep + 1) * nbytes
+    if free < need:
+        fail(f"{tag}: {free} bytes free on the disk, the run's saves need "
+             f"{need}")
+    saves = []
+    save = trainer._save_ckpt
+
+    def timed_save(step):
+        t0 = time.monotonic()
+        save(step)
+        torch.cuda.synchronize()
+        saves.append(time.monotonic() - t0)
+
+    trainer._save_ckpt = timed_save
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    reset_launches()
+    try:
+        res = trainer.run()
+    finally:
+        del trainer._save_ckpt          # no cycle keeps the state alive
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    wall = time.monotonic() - t0
+    steps = sorted(l.seconds for l in trainer.logs)
+    reps = [{"detect_s": r.detect_s, "mpi_recovery_s": r.mpi_recovery_s,
+             "ckpt_read_s": r.ckpt_read_s, "total_s": r.total_s,
+             "rollback_step": r.rollback_step} for r in res["reports"]]
+    print(f"[{phase}] {tag}: {wall:.1f} s; {nparams} parameters, state "
+          f"{nbytes} B; disk free before {free} B; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B; median step "
+          f"{steps[len(steps) // 2] * 1e3:.1f} ms (min {steps[0] * 1e3:.1f},"
+          f" {len(steps)} steps); saves {[round(s, 3) for s in saves]} s; "
+          f"first_loss {res['losses'][0]:.4f} last_loss "
+          f"{res['losses'][-1]:.4f}; recoveries {reps}")
+    out = {"final_step": res["final_step"], "last_loss": res["losses"][-1],
+           "rollbacks": [r["rollback_step"] for r in reps],
+           "launches": launches, "digests": state_digests(trainer.state)}
+    shutil.rmtree(tc.ckpt_dir)
+    return out
+
+
+def phase_train_families(torch) -> dict:
+    """Phase 4d [train-families]: the trainer through the API on the moe,
+    ssm, hybrid and vlm families (TRAIN_FAMILIES): olmoe-1b-7b,
+    falcon-mamba-7b and zamba2-7b at published width with the depth cut,
+    llava-next-34b reduced; batch 8 x seq 256, bf16 compute, float32
+    parameters, full saves (K2). Each model's fault run must roll back to
+    the save before the fault and end on its fault-free twin's final
+    state bit for bit (every leaf's digest) and loss. Returns {path:
+    kernel launches over its two runs}."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import ScenarioInjector
+    from repro_torch.models.model import Model
+    from repro_torch.scenarios import Fault, Scenario, Topology
+    from repro_torch.train import (AdamWConfig, TokenPipeline, TrainConfig,
+                                   Trainer)
+    phase = "train-families"
+    print(f"[{phase}] depth cut: olmoe-1b-7b 2 of 16 layers, falcon-mamba-7b "
+          f"2 of 64, zamba2-7b 7 of 81 (one group of 6 Mamba2 layers with "
+          f"its shared attention block, and one tail layer), so that five "
+          f"copies of the float32 state (parameters and AdamW moments: the "
+          f"live state, the memory checkpoint's pair and a save's two new "
+          f"clones) fit the card's 80 GB; llava-next-34b reduced (d_model "
+          f"64): one of its layers at published width is 1.475 B "
+          f"parameters, 17.7 GB of state, 88 GB in five copies. "
+          f"{FAMILY_STEPS} steps, a save every {FAMILY_CKPT_EVERY} (one "
+          f"save a run), the fault at the top of step {FAMILY_FAIL_STEP}")
+    launches = {}
+    for path, arch, depth, strategy, kind in TRAIN_FAMILIES:
+        cfg = get_config(arch)
+        cfg = cfg.replace(n_layers=depth) if depth else reduced(cfg)
+        sc = Scenario(name=path, steps=FAMILY_STEPS,
+                      topology=Topology(nodes=2, ranks_per_node=4, spares=1),
+                      faults=(Fault("node" if kind == "node" else "rank", 3,
+                                    FAMILY_FAIL_STEP),),
+                      strategies=(strategy,))
+        print(f"[{phase}] {path}: {cfg.name}, {cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, param_count "
+              f"{cfg.param_count()}; {strategy}, a {kind} fault")
+        runs = {}
+        for twin in (False, True):
+            tag = f"{path}-{'twin' if twin else 'fault'}"
+            runs[twin] = train_run(torch, phase, tag, Trainer(
+                Model(cfg), TokenPipeline(cfg.vocab_size, 8, 256, seed=0),
+                AdamWConfig(total_steps=FAMILY_STEPS, warmup_steps=1),
+                TrainConfig(total_steps=FAMILY_STEPS,
+                            ckpt_dir=os.path.join(WORK, tag),
+                            ckpt_every=FAMILY_CKPT_EVERY, strategy=strategy,
+                            seed=0),
+                injector=None if twin else ScenarioInjector(sc)))
+        fault, twin = runs[False], runs[True]
+        if {fault["final_step"], twin["final_step"]} != {FAMILY_STEPS}:
+            fail(f"{path}: final steps {fault['final_step']}, "
+                 f"{twin['final_step']}")
+        want = FAMILY_FAIL_STEP - FAMILY_FAIL_STEP % FAMILY_CKPT_EVERY
+        if fault["rollbacks"] != [want] or twin["rollbacks"]:
+            fail(f"{path}: rollbacks {fault['rollbacks']} and "
+                 f"{twin['rollbacks']}, expected [{want}] and []")
+        if fault["digests"] != twin["digests"] \
+                or fault["last_loss"] != twin["last_loss"]:
+            diff = sorted(k for k, v in twin["digests"]["digests"].items()
+                          if fault["digests"]["digests"].get(k) != v)
+            fail(f"{path}: the final state differs from the fault-free "
+                 f"twin's in {diff}, last losses {fault['last_loss']} and "
+                 f"{twin['last_loss']}")
+        launches[path] = {k: fault["launches"][k] + twin["launches"][k]
+                          for k in fault["launches"]}
+        print(f"[{phase}] {path}: final state bit-identical to its twin "
+              f"({len(twin['digests']['digests'])} leaves); launches "
+              f"{launches[path]}")
+    return launches
+
+
+def phase_train_strategies(torch, twin: dict) -> dict:
+    """Phase 4e [train-strategies]: [train]'s paper-demo run (full width,
+    batch 8 x seq 256, STEPS steps, a full save every step, the fault
+    drawn by FaultInjector seed 0) through the API under ulfm and replica,
+    each with a process and a node fault. Fault-free training does not
+    depend on the strategy (tests/test_torch_train_families.py), so each
+    final state is held bit for bit to `twin`, the digests of [train]'s
+    reinit twin's last save; each must resume at the fail step (replica
+    by promoting its warm shadow). Returns {path: kernel launches}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import FailureType, FaultInjector
+    from repro_torch.models.model import Model
+    from repro_torch.train import (AdamWConfig, TokenPipeline, TrainConfig,
+                                   Trainer)
+    phase = "train-strategies"
+    cfg = get_config("paper-demo")
+    launches = {}
+    for strategy, kind in TRAIN_STRATEGIES:
+        path = f"train-{strategy}-{kind}"
+        inj = FaultInjector(n_ranks=8, n_steps=STEPS, seed=0,
+                            kind=FailureType.NODE if kind == "node"
+                            else FailureType.PROCESS)
+        out = train_run(torch, phase, path, Trainer(
+            Model(cfg), TokenPipeline(cfg.vocab_size, 8, 256, seed=0),
+            AdamWConfig(total_steps=STEPS, warmup_steps=max(STEPS // 10, 1)),
+            TrainConfig(total_steps=STEPS, ckpt_dir=os.path.join(WORK, path),
+                        strategy=strategy, seed=0),
+            injector=inj))
+        if out["final_step"] != STEPS:
+            fail(f"{path}: final_step {out['final_step']}")
+        if out["rollbacks"] != [inj.fail_step]:
+            fail(f"{path}: rollbacks {out['rollbacks']}, expected "
+                 f"[{inj.fail_step}] (the fail step)")
+        if out["digests"] != twin:
+            diff = sorted(k for k, v in twin["digests"].items()
+                          if out["digests"]["digests"].get(k) != v)
+            fail(f"{path}: the final state differs from [train]'s reinit "
+                 f"twin's in {diff}")
+        launches[path] = out["launches"]
+        print(f"[{phase}] {path}: fail step {inj.fail_step}, final state "
+              f"bit-identical to [train]'s reinit twin "
+              f"({len(twin['digests'])} leaves); launches {out['launches']}")
+    return launches
+
+
 # the runtime's deployment: the reference root's defaults (2 nodes x 4
 # ranks + 1 spare node, 20 steps, dim 4096: w is 128 MiB of float64)
 RT_TOPOLOGY = (2, 4, 1)
@@ -2353,7 +2591,8 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"[card] {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
-    phase_reprolint()
+    with phase_time("reprolint"):
+        phase_reprolint()
 
     t0 = time.monotonic()
     builds = {"checksum": cs_build.KERNELS,
@@ -2375,19 +2614,33 @@ def main() -> int:
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
-    rows = phase_kernels(torch, ops)
-    rows["flash_attention"], flash_checked = phase_flash(torch)
-    rows["selective_scan"], scan_checked = phase_scan(torch, per_exp)
-    phase_device_times(torch, ops)
+    with phase_time("kernels"):
+        rows = phase_kernels(torch, ops)
+    with phase_time("flash"):
+        rows["flash_attention"], flash_checked = phase_flash(torch)
+    with phase_time("scan"):
+        rows["selective_scan"], scan_checked = phase_scan(torch, per_exp)
+    with phase_time("device"):
+        phase_device_times(torch, ops)
 
-    by_path, finals = phase_train(torch, ops)
-    by_path["sharded-train"] = phase_sharded_train(
-        torch, finals["reinit-process-full"])
-    by_path.update(phase_train_elastic(torch))
-    by_path["sparse-dirt"] = phase_sparse_dirt(torch, ops)
+    with phase_time("train"):
+        by_path, finals = phase_train(torch, ops)
+    with phase_time("sharded-train"):
+        by_path["sharded-train"] = phase_sharded_train(
+            torch, finals["reinit-process-full"])
+    with phase_time("train elastic"):
+        by_path.update(phase_train_elastic(torch))
+    with phase_time("train-families"):
+        by_path.update(phase_train_families(torch))
+    with phase_time("train-strategies"):
+        by_path.update(phase_train_strategies(
+            torch, finals["reinit-process-full"]))
+    with phase_time("sparse"):
+        by_path["sparse-dirt"] = phase_sparse_dirt(torch, ops)
     gc.collect()
     torch.cuda.empty_cache()         # the workers' memory stands out
-    runtime = phase_runtime()
+    with phase_time("runtime"):
+        runtime = phase_runtime()
     by_path.update(runtime)
     shutil.rmtree(WORK, ignore_errors=True)
     flash_seen: set = set()
@@ -2396,26 +2649,34 @@ def main() -> int:
         by_path["sharded-serve"] = phase_sharded_serve(
             torch, *args, recording_flash_shapes(flash_seen))
 
-    by_path["serve-qwen2-7b"] = phase_serve(
-        torch, "qwen2-7b", "flash_attention",
-        recording_flash_shapes(flash_seen), "serve", then=sharded_serve)
-    by_path["serve-cluster-paper-demo"] = phase_serve_cluster(torch,
-                                                              flash_seen)
+    with phase_time("serve and sharded-serve"):
+        by_path["serve-qwen2-7b"] = phase_serve(
+            torch, "qwen2-7b", "flash_attention",
+            recording_flash_shapes(flash_seen), "serve", then=sharded_serve)
+    with phase_time("serve-cluster"):
+        by_path["serve-cluster-paper-demo"] = phase_serve_cluster(
+            torch, flash_seen)
     scan_seen: set = set()
-    by_path["serve-falcon-mamba-7b"] = phase_serve(
-        torch, "falcon-mamba-7b", "selective_scan",
-        recording_scan_shapes(scan_seen), "serve-ssm")
-    by_path["serve-zamba2-7b"] = phase_serve(
-        torch, "zamba2-7b", "flash_attention",
-        recording_flash_shapes(flash_seen), "serve-hybrid")
-    by_path["serve-olmoe-1b-7b"] = phase_serve(
-        torch, "olmoe-1b-7b", "flash_attention",
-        recording_flash_shapes(flash_seen), "serve-moe")
-    by_path["serve-seamless-m4t-medium"] = phase_serve_encdec(torch,
-                                                              flash_seen)
-    by_path["serve-llava-next-34b"] = phase_serve_vlm(torch, flash_seen)
-    by_path["dryrun-qwen2-7b-prefill"] = phase_dryrun(torch, rows, by_path,
-                                                      flash_seen)
+    with phase_time("serve-ssm"):
+        by_path["serve-falcon-mamba-7b"] = phase_serve(
+            torch, "falcon-mamba-7b", "selective_scan",
+            recording_scan_shapes(scan_seen), "serve-ssm")
+    with phase_time("serve-hybrid"):
+        by_path["serve-zamba2-7b"] = phase_serve(
+            torch, "zamba2-7b", "flash_attention",
+            recording_flash_shapes(flash_seen), "serve-hybrid")
+    with phase_time("serve-moe"):
+        by_path["serve-olmoe-1b-7b"] = phase_serve(
+            torch, "olmoe-1b-7b", "flash_attention",
+            recording_flash_shapes(flash_seen), "serve-moe")
+    with phase_time("serve-encdec"):
+        by_path["serve-seamless-m4t-medium"] = phase_serve_encdec(
+            torch, flash_seen)
+    with phase_time("serve-vlm"):
+        by_path["serve-llava-next-34b"] = phase_serve_vlm(torch, flash_seen)
+    with phase_time("dryrun"):
+        by_path["dryrun-qwen2-7b-prefill"] = phase_dryrun(
+            torch, rows, by_path, flash_seen)
     unchecked = sorted(flash_seen - flash_checked)
     if unchecked:
         fail(f"the serving paths gave F1 cases that [flash] did not hold "
@@ -2430,7 +2691,10 @@ def main() -> int:
           f"{sorted(scan_seen)}")
     # the path each kernel must launch on
     required = {"checksum_words": ["reinit-process-full", "sharded-train",
-                                   "shrink-node-full", "gray-slow-drain"],
+                                   "shrink-node-full", "gray-slow-drain",
+                                   *(p for p, *_ in TRAIN_FAMILIES),
+                                   *(f"train-{s}-{k}"
+                                     for s, k in TRAIN_STRATEGIES)],
                 "tile_checksums": ["cr-node-delta4", *runtime],
                 "gather_tiles": ["sparse-dirt"],
                 "flash_attention": ["serve-qwen2-7b", "sharded-serve",
@@ -2467,6 +2731,8 @@ def main() -> int:
                "launches": sum(c[name] for c in by_path.values()),
                "launches_by_path": {p: c[name] for p, c in by_path.items()},
                **rows[name]} for name, (src, replaces) in kernels.items()]
+    print(f"[time] chip_smoke.py in all: "
+          f"{time.monotonic() - T_START:.1f} s")
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

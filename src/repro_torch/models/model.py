@@ -129,7 +129,16 @@ class Model:
 
     def _encode(self, params, batch, dt):
         """An encdec model's encoder output, normed: the frontend's
-        projection of `enc_emb` (B,S_enc,D) through the encoder."""
+        projection of `enc_emb` (B,S_enc,D) through the encoder. A batch
+        without it (the token pipeline's, at the first training step)
+        raises where the reference raises a KeyError (ROADMAP C11)."""
+        if "enc_emb" not in batch:
+            raise ValueError(
+                f"the encdec model {self.cfg.name!r} needs `enc_emb` (B, "
+                f"S_enc, D) in its batch, and this batch has only "
+                f"{sorted(batch)}: the token pipeline yields no encoder "
+                f"input, so an encdec model cannot train on it (ROADMAP "
+                f"C11)")
         fe = dense(params["frontend_proj"], batch["enc_emb"], dt)
         enc_out = encoder_forward(params["stack"], fe, self.cfg, self.ec, dt)
         return rmsnorm(params["ln_enc"], enc_out, self.cfg.norm_eps)

@@ -189,7 +189,10 @@ class Trainer:
             params = tree_map(lambda p: p.detach().requires_grad_(),
                               state["params"])
             loss, metrics = model.loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, tree_leaves(params))
+            # a leaf the loss does not reach (a vlm's frontend_proj on a
+            # batch of tokens alone) gets zeros, as jax.grad gives it
+            grads = torch.autograd.grad(loss, tree_leaves(params),
+                                        materialize_grads=True)
             with torch.no_grad():
                 new_p, new_opt, om = adamw_update(
                     state["params"], tree_unflatten(params, list(grads)),

@@ -291,8 +291,57 @@ def sharding(rank, world, args):
     return out
 
 
+def zero_grad(rank, world, args):
+    """One step of the sharded trainer on a reduced vlm model, whose
+    `frontend_proj` the token batch never reaches: the gradient the step
+    hands to AdamW for that leaf (zeros, as jax.grad gives) and the leaf's
+    own placements."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.sharding.rules import ShardingRules
+    from repro_torch.train import (AdamWConfig, TokenPipeline, TrainConfig,
+                                   Trainer)
+    from repro_torch.train import trainer as trainer_mod
+
+    mesh = make_host_mesh((world,), ("data",), device="cpu")
+    cfg = reduced(get_config("llava-next-34b")).replace(
+        compute_dtype="float32")
+    seen = []
+    update = trainer_mod.adamw_update
+
+    def spy(params, grads, opt_state, cfg_):
+        seen.append(grads["frontend_proj"]["w"])
+        return update(params, grads, opt_state, cfg_)
+
+    trainer_mod.adamw_update = spy
+    try:
+        tr = Trainer(Model(cfg),
+                     TokenPipeline(cfg.vocab_size, 8, 16, seed=3,
+                                   device="cpu"),
+                     AdamWConfig(warmup_steps=1, total_steps=1),
+                     TrainConfig(total_steps=1, ckpt_dir=os.path.join(
+                         args["dir"], "zero_grad"), device="cpu"),
+                     mesh=mesh, rules=ShardingRules(batch="data",
+                                                    embed="data"))
+        res = tr.run()
+    finally:
+        trainer_mod.adamw_update = update
+    g = seen[0]
+    w = tr.state["params"]["frontend_proj"]["w"]
+    return {"final_step": res["final_step"],
+            "grad_type": type(g).__name__,
+            "grad_placements": [str(p) for p in g.placements],
+            "param_placements": [str(p) for p in w.placements],
+            "grad_local_shape": tuple(g.to_local().shape),
+            "param_local_shape": tuple(w.to_local().shape),
+            "grad_abs_max": float(_full_t(g).abs().max())}
+
+
 def sharded(rank, world, args):
-    """test_torch_sharded.py's world: the trainer on a (4,) data mesh and
-    the engine on a (2, 2) (data, model) mesh of the same 4 ranks."""
+    """test_torch_sharded.py's world: the trainer on a (4,) data mesh, the
+    engine on a (2, 2) (data, model) mesh of the same 4 ranks, and a vlm
+    step's zero gradient on the (4,) mesh."""
     return {"trainer": trainer(rank, world, args["trainer"]),
-            "engine": engine(rank, world, args["engine"])}
+            "engine": engine(rank, world, args["engine"]),
+            "zero_grad": zero_grad(rank, world, args["zero_grad"])}

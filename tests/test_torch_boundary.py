@@ -1,6 +1,7 @@
 """The port's boundary: repro_torch never loads jax or the JAX package,
 runs on the card unless asked for the CPU, and sets no global torch
 state when imported."""
+import json
 import os
 import re
 import subprocess
@@ -224,3 +225,33 @@ def test_runtime_default_device_is_cuda(tmp_path):
     with pytest.raises((RuntimeError, subprocess.TimeoutExpired)):
         engine.run_real(fault_free(T22, steps=2, dim=4), "reinit",
                         str(tmp_path / "real"), timeout=60)
+
+
+EXAMPLES_DIR = os.path.join(ROOT, "examples", "torch")
+
+_EXAMPLE_CHILD = r"""
+import json, runpy, sys
+path = sys.argv[1]
+sys.argv = [path, "--device", "cpu"]
+runpy.run_path(path, run_name="__main__")
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                        or m == "repro" or m.startswith("repro."))))
+"""
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n in os.listdir(EXAMPLES_DIR) if n.endswith(".py")))
+def test_examples_never_load_jax_or_reference(name):
+    """The port's examples (examples/torch/) import no jax and no module
+    of the JAX package: none in their source, none loaded by a dry run."""
+    path = os.path.join(EXAMPLES_DIR, name)
+    with open(path, encoding="utf-8") as f:
+        assert _FORBIDDEN.findall(f.read()) == []
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               REPRO_DRYRUN="1")
+    proc = subprocess.run([sys.executable, "-c", _EXAMPLE_CHILD, path],
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

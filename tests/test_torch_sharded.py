@@ -85,7 +85,8 @@ def world(tmp_path_factory):
         "trainer": {"dir": str(root), "ckpt0": str(ckpt0), "steps": STEPS,
                     "batch": BATCH, "seq": SEQ, "seed": SEED},
         "engine": dict(ENGINE, cfg=port.cfg, prompts=PROMPTS,
-                       params=str(root / "serve_params.pt"))})
+                       params=str(root / "serve_params.pt")),
+        "zero_grad": {"dir": str(root)}})
     shutil.copytree(ckpt0, root / "ref")
     ref_losses = _ref_trainer(root / "ref").run()["losses"]
     eng = RefServeEngine(ref, params, n_slots=ENGINE["n_slots"],
@@ -129,6 +130,19 @@ def test_sharded_save_writes_the_unsharded_bytes(world):
     o = world[0]["trainer"]
     assert "manifest.json" in o["frame_files"]
     assert o["frames_equal"]
+
+
+def test_unreached_leaf_gets_a_zero_gradient_in_its_placement(world):
+    """A vlm step on a batch of tokens alone never reaches
+    `frontend_proj`: its gradient is zeros laid out as the leaf is (the
+    trainer materialises it, ROADMAP C12), and the step completes."""
+    o = world[0]["zero_grad"]
+    assert o["final_step"] == 1
+    assert o["grad_type"] == "DTensor"
+    assert o["param_placements"] == ["S(0)"]        # embed over data
+    assert o["grad_placements"] == o["param_placements"]
+    assert o["grad_local_shape"] == o["param_local_shape"]
+    assert o["grad_abs_max"] == 0.0
 
 
 # -------------------------------------------------------------- engine
