@@ -86,6 +86,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels.checksum.ops import byte_stream, tile_checksums
 from repro_torch.kernels.checksum.ref import TILE_BYTES, byte_view
 
@@ -545,15 +546,22 @@ class FramePublisher:
         sees a non-anchoring parent, degrading to a full frame)."""
         ex = dict(extra or {})
         ex.setdefault("step", step)
-        kind, plan, tiles, base = self.chain.decide(flat, step)
-        if kind == "delta":
-            # gathered representation: the frame is assembled from
-            # zero-copy slices of the dirty ranges only — same bytes as
-            # the full-drain path, without re-touching clean pages
-            payload = to_delta_bytes_gathered(gather_host(flat, plan),
-                                              base_step=base, extra=ex)
-        else:
-            payload = to_bytes(flat, extra=ex)
+        with tracing.span("replicate.digest"):
+            tiles = tile_digests(flat)
+            tracing.count("replicate.bytes_digested",
+                          sum(t.nbytes for t in tiles.values()))
+        with tracing.span("replicate.plan"):
+            kind, plan, tiles, base = self.chain.decide(flat, step, tiles)
+        with tracing.span("replicate.encode", kind=kind):
+            if kind == "delta":
+                # gathered representation: the frame is assembled from
+                # zero-copy slices of the dirty ranges only — same bytes
+                # as the full-drain path, without re-touching clean pages
+                payload = to_delta_bytes_gathered(gather_host(flat, plan),
+                                                  base_step=base, extra=ex)
+            else:
+                payload = to_bytes(flat, extra=ex)
+            tracing.count("replicate.bytes_framed", len(payload))
         self.chain.commit(step, tiles, kind)
         self.last_kind = kind
         return payload

@@ -39,6 +39,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.checkpoint.memory_ckpt import BuddyStore
 from repro_torch.scenarios import hooks
 
@@ -155,6 +156,9 @@ class ServeCluster:
         self.submitted: Dict[int, Dict[int, Arrival]] = {
             r: {} for r in range(world)}
         self.metrics: Dict[str, Any] = {"kills": []}
+        # rank -> (restored requests still behind their watermark, each
+        # with its watermark; the tokens they re-decode)
+        self._replaying: Dict[int, tuple] = {}
         for r in range(world):
             self.stores[r] = BuddyStore(r, world,
                                         push_remote=self._push_remote(r))
@@ -202,32 +206,39 @@ class ServeCluster:
         try:
             total = rounds + drain_rounds
             for rnd in range(total):
-                self._round = rnd
-                self._revive_due(rnd)
-                for rank in range(self.world):
-                    for a in load.due(rnd, rank):
-                        self.submitted[rank][a.rid] = a
-                        if self.alive[rank]:
-                            self.engines[rank].submit(a.request())
-                        # a down rank's arrivals wait in `submitted`
-                        # and are replayed into the respawned engine
-                for rank in range(self.world):
-                    if not self.alive[rank]:
-                        continue
-                    try:
-                        self.engines[rank].step()
-                    except RankKilled as k:
-                        self._on_kill(k.rank, rnd)
-                        continue
-                    if rnd % self.publish_every == 0:
-                        self.reps[rank].publish(self.engines[rank])
-                if rnd >= rounds and self._drained(load):
-                    break
+                with tracing.span("cluster.round", round=rnd):
+                    if self._run_round(load, rnd, rounds):
+                        break
             return self._finalize(load)
         finally:
             hooks.clear()
             if prev is not None:
                 hooks.install(prev)
+
+    def _run_round(self, load: LoadGen, rnd: int, rounds: int) -> bool:
+        """One round; True once the load is served and drained."""
+        self._round = rnd
+        self._revive_due(rnd)
+        for rank in range(self.world):
+            for a in load.due(rnd, rank):
+                self.submitted[rank][a.rid] = a
+                if self.alive[rank]:
+                    self.engines[rank].submit(a.request())
+                # a down rank's arrivals wait in `submitted`
+                # and are replayed into the respawned engine
+        for rank in range(self.world):
+            if not self.alive[rank]:
+                continue
+            try:
+                self.engines[rank].step()
+            except RankKilled as k:
+                self._on_kill(k.rank, rnd)
+                continue
+            if rank in self._replaying:
+                self._replay_check(rank)
+            if rnd % self.publish_every == 0:
+                self.reps[rank].publish(self.engines[rank])
+        return rnd >= rounds and self._drained(load)
 
     def _injector(self, fault: dict):
         tgt_point, tgt_rank = fault["point"], fault["rank"]
@@ -250,6 +261,8 @@ class ServeCluster:
     # --------------------------------------------------------- recovery
 
     def _on_kill(self, rank: int, rnd: int):
+        tracing.event("cluster.kill", rank=rank, round=rnd)
+        self._replaying.pop(rank, None)
         self.alive[rank] = False
         self.engines[rank] = None
         self.metrics["kills"].append(
@@ -278,14 +291,18 @@ class ServeCluster:
             snap = self.standby[rank]
         else:
             held = self.stores[self._buddy_of(rank)].held_map(rank)
-            try:
-                snap = ServeReplicator.compose(held)
-            except KeyError:
-                snap = None      # died before the first publish: cold
+            with tracing.span("recover.compose", rank=rank,
+                              frames=len(held),
+                              bytes=sum(map(len, held.values()))):
+                try:
+                    snap = ServeReplicator.compose(held)
+                except KeyError:
+                    snap = None  # died before the first publish: cold
                                  # start, every request re-submits
         eng = self._new_engine(rank)
         if snap is not None:
-            eng.restore(snap)
+            with tracing.span("recover.restore", rank=rank):
+                eng.restore(snap)
         replay = 0
         # watermarks: anything the clients already hold must be
         # re-decoded silently, never re-delivered
@@ -293,6 +310,10 @@ class ServeCluster:
             d = self.sink.delivered(req.rid)
             replay += max(0, d - req.emitted)
             req.emitted = max(req.emitted, d)
+        tracing.begin("recover.replay", rank, rank=rank)
+        self._replaying[rank] = (
+            [(r, r.emitted) for r in eng.live_requests()
+             if r.emitted > len(r.out)], replay)
         live = {r.rid for r in eng.live_requests()}
         done_in_snap = {s["rid"] for s in (snap["slots"] if snap else [])
                         if s and s["done"]}
@@ -319,6 +340,19 @@ class ServeCluster:
         self.metrics["kills"][-1].update(
             {"recovered_round": rnd, "rounds_down": rnd -
              self.metrics["kills"][-1]["round"], "replayed_tokens": replay})
+        self._replay_check(rank)
+
+    def _replay_check(self, rank: int):
+        """Close the rank's replay once every restored request has
+        re-decoded up to its watermark."""
+        behind, tokens = self._replaying[rank]
+        behind = [(r, w) for r, w in behind if len(r.out) < w]
+        if behind:
+            self._replaying[rank] = (behind, tokens)
+            return
+        del self._replaying[rank]
+        tracing.count("serve.tokens_replayed", tokens)
+        tracing.end("recover.replay", rank, tokens=tokens)
 
     # --------------------------------------------------------- plumbing
 

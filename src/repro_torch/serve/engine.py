@@ -67,6 +67,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import HostCopy, host_leaf, is_dtensor, to_device
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import family
@@ -243,6 +244,8 @@ class ServeEngine:
             raise ValueError(f"prompt of {len(req.prompt)} tokens does not "
                              f"fit max_len={self.max_len}")
         self.queue.append(req)
+        tracing.begin("request.queued", (self.name, req.rid), rid=req.rid,
+                      engine=self.name)
 
     def _free_slots(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
@@ -337,6 +340,7 @@ class ServeEngine:
                 hooks.fire("serve.prefill.mid", engine=self,
                            rids=[self.queue[0].rid])
                 req = self.queue.pop(0)
+                tracing.end("request.queued", (self.name, req.rid))
                 slot = free.pop(0)
                 self._splice([slot], [0], lane_state)
                 self._commit_admission(slot, req, nxt)
@@ -356,10 +360,17 @@ class ServeEngine:
                            (self.prefill_batch, 1))
             for i, r in enumerate(take):
                 toks[i] = np.asarray(r.prompt, np.int64)
-            with self._scope():
-                logits, st = self._prefill_fn(self.params, self._tokens(toks))
+                tracing.end("request.queued", (self.name, r.rid))
+            pad = self.prefill_batch - len(take)
+            with tracing.span("engine.prefill", lanes=len(take),
+                              pad_lanes=pad, S=head_len):
+                tracing.count("engine.prefill_tokens", len(take) * head_len)
+                tracing.count("engine.prefill_pad_tokens", pad * head_len)
+                with self._scope():
+                    logits, st = self._prefill_fn(self.params,
+                                                  self._tokens(toks))
+                nxts = gather(logits[:, -1]).argmax(-1).cpu().numpy()
             self.prefill_calls += 1
-            nxts = gather(logits[:, -1]).argmax(-1).cpu().numpy()
             # interruption point: prefill computed, nothing committed —
             # a kill here loses the compute but neither queue nor slots
             hooks.fire("serve.prefill.mid", engine=self,
@@ -380,7 +391,8 @@ class ServeEngine:
         """One decode step for all active slots; returns #active."""
         hooks.fire("serve.decode.step", engine=self, step=self._tick)
         self._tick += 1
-        self._admit()
+        with tracing.span("engine.admit"):
+            self._admit()
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             return 0
@@ -391,11 +403,13 @@ class ServeEngine:
         # per-slot positions: each slot writes its KV at its own clock
         # and masks from its own position; inactive slots decode padding
         # into lanes that the next admission's prefill fully overwrites
-        with self._scope():
-            logits, self.state = self._decode(
-                self.params, self._tokens(cur), self.state,
-                torch.from_numpy(self.pos.astype(np.int64)).to(self.device))
-        nxt = gather(logits[:, 0]).argmax(-1).cpu().numpy()
+        with tracing.span("engine.decode", active=len(active)):
+            with self._scope():
+                logits, self.state = self._decode(
+                    self.params, self._tokens(cur), self.state,
+                    torch.from_numpy(self.pos.astype(np.int64)).to(
+                        self.device))
+            nxt = gather(logits[:, 0]).argmax(-1).cpu().numpy()
         for i in active:
             req = self.slots[i]
             req.out.append(int(nxt[i]))
@@ -450,6 +464,9 @@ class ServeEngine:
                       for d in snap["slots"]]
         self.queue = [Request.from_dict(d) for d in snap.get("queue", ())]
         self._tick = int(snap.get("tick", self._tick))
+        for r in self.queue:
+            tracing.begin("request.queued", (self.name, r.rid), rid=r.rid,
+                          engine=self.name, restored=True)
 
     def live_requests(self) -> list[Request]:
         """Every request the engine still owns (slots + queue)."""

@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.checkpoint import serde
 from repro_torch.checkpoint.manifest import flatten_state, unflatten_state
 
@@ -56,7 +57,6 @@ class ServeReplicator:
         # held frames age out of the retention window instead of
         # shadowing the new chain as "newest composable"
         self.next_step = start_step
-        self.frames_published = 0
         self.bytes_published = 0
         self.last_kind: Optional[str] = None
 
@@ -68,18 +68,25 @@ class ServeReplicator:
         tick advances by the publish cadence, not by 1. The tick rides in
         the frame meta instead. The snapshot's async D2H drain overlaps
         the flatten; `host_state` waits for each leaf's copy."""
-        snap = engine.snapshot()
         step = self.next_step
         self.next_step += 1
-        flat = flatten_state(host_state(snap["state"]))
-        meta = {"pos": [int(p) for p in snap["pos"]],
-                "slots": snap["slots"], "queue": snap["queue"],
-                "tick": int(snap["tick"])}
-        payload = self._pub.publish(flat, step, extra={"serve": meta})
-        self.store.save(step, payload)
-        self.frames_published += 1
-        self.bytes_published += len(payload)
-        self.last_kind = self._pub.last_kind
+        with tracing.span("replicate.publish", engine=engine.name,
+                          step=step) as sp:
+            with tracing.span("replicate.snapshot"):
+                snap = engine.snapshot()
+            with tracing.span("replicate.d2h_wait"):
+                state = host_state(snap["state"])
+            with tracing.span("replicate.flatten"):
+                flat = flatten_state(state)
+            meta = {"pos": [int(p) for p in snap["pos"]],
+                    "slots": snap["slots"], "queue": snap["queue"],
+                    "tick": int(snap["tick"])}
+            payload = self._pub.publish(flat, step, extra={"serve": meta})
+            with tracing.span("replicate.push"):
+                self.store.save(step, payload)
+            self.bytes_published += len(payload)
+            self.last_kind = self._pub.last_kind
+            sp.set(kind=self.last_kind, bytes=len(payload))
         return step
 
     def rebase(self):
