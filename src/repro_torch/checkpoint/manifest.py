@@ -43,19 +43,23 @@ def flatten_leaves(state) -> Dict[str, Any]:
     """Like flatten_state but leaves untouched — tensors stay on their
     device (the fast checkpoint path digests and drains them itself)."""
     out: Dict[str, Any] = {}
-
-    def rec(prefix, node):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                rec(f"{prefix}/{k}" if prefix else str(k), node[k])
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                rec(f"{prefix}/{i}", v)
-        else:
-            out[prefix] = node
-
-    rec("", state)
+    _flatten_into(out, "", state)
     return out
+
+
+def _flatten_into(out: Dict[str, Any], prefix: str, node) -> None:
+    # a module-level recursion: a nested function that calls itself is a
+    # reference cycle holding `out`, so the leaves (device clones of a
+    # snapshot) would outlive the caller until the cycle collector runs
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _flatten_into(out, f"{prefix}/{k}" if prefix else str(k),
+                          node[k])
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _flatten_into(out, f"{prefix}/{i}", v)
+    else:
+        out[prefix] = node
 
 
 def unflatten_state(flat: Dict[str, np.ndarray]):

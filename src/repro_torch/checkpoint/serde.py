@@ -537,19 +537,24 @@ class FramePublisher:
         self.last_kind: str | None = None
 
     def publish(self, flat: Dict[str, Any], step: int,
-                extra: dict | None = None) -> bytes:
+                extra: dict | None = None,
+                tiles: Dict[str, LeafTiles] | None = None) -> bytes:
         """Frame bytes for `flat` at `step` — a tile-range delta against
         the previous frame when the chain allows it and the state is
-        sparse-dirty, a full frame otherwise. The chain is committed
+        sparse-dirty, a full frame otherwise. `tiles` are `flat`'s
+        digests where the caller has taken them already (the serve
+        replicator, on the snapshot's device clones); without them the
+        leaves of `flat` are digested here. The chain is committed
         before returning; in-memory pushes have no partial-write failure
         mode (a crashed push loses the whole frame and the next decide
         sees a non-anchoring parent, degrading to a full frame)."""
         ex = dict(extra or {})
         ex.setdefault("step", step)
-        with tracing.span("replicate.digest"):
-            tiles = tile_digests(flat)
-            tracing.count("replicate.bytes_digested",
-                          sum(t.nbytes for t in tiles.values()))
+        if tiles is None:
+            with tracing.span("replicate.digest"):
+                tiles = tile_digests(flat)
+                tracing.count("replicate.bytes_digested",
+                              sum(t.nbytes for t in tiles.values()))
         with tracing.span("replicate.plan"):
             kind, plan, tiles, base = self.chain.decide(flat, step, tiles)
         with tracing.span("replicate.encode", kind=kind):

@@ -32,7 +32,10 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.checkpoint import serde
-from repro_torch.checkpoint.manifest import flatten_state, unflatten_state
+from repro_torch.checkpoint.manifest import (flatten_leaves, flatten_state,
+                                             unflatten_state)
+from repro_torch.device import is_dtensor
+from repro_torch.tree import tree_map
 
 from .engine import host_state
 
@@ -66,8 +69,11 @@ class ServeReplicator:
         of the engine tick — the BuddyStore retention walk and the
         `contiguous` chain policy assume step-1 parents, and the engine
         tick advances by the publish cadence, not by 1. The tick rides in
-        the frame meta instead. The snapshot's async D2H drain overlaps
-        the flatten; `host_state` waits for each leaf's copy."""
+        the frame meta instead.
+
+        The tiles are digested on the snapshot's device clones (K1 on the
+        card); only their 12 B a tile come back. A DTensor leaf is
+        digested on its host copy, which `host_state` assembles."""
         step = self.next_step
         self.next_step += 1
         with tracing.span("replicate.publish", engine=engine.name,
@@ -78,10 +84,22 @@ class ServeReplicator:
                 state = host_state(snap["state"])
             with tracing.span("replicate.flatten"):
                 flat = flatten_state(state)
+            dev = flatten_leaves(tree_map(lambda a: a.dev, snap["state"]))
+            assert list(flat) == list(dev), (list(flat), list(dev))
+            with tracing.span("replicate.digest"):
+                tiles = serde.tile_digests(
+                    {k: flat[k] if is_dtensor(v) else v
+                     for k, v in dev.items()})
+                tracing.count("replicate.bytes_digested",
+                              sum(t.nbytes for t in tiles.values()))
+                tracing.count("replicate.bytes_digested_device",
+                              sum(tiles[k].nbytes for k, v in dev.items()
+                                  if not is_dtensor(v)))
             meta = {"pos": [int(p) for p in snap["pos"]],
                     "slots": snap["slots"], "queue": snap["queue"],
                     "tick": int(snap["tick"])}
-            payload = self._pub.publish(flat, step, extra={"serve": meta})
+            payload = self._pub.publish(flat, step, extra={"serve": meta},
+                                        tiles=tiles)
             with tracing.span("replicate.push"):
                 self.store.save(step, payload)
             self.bytes_published += len(payload)

@@ -60,8 +60,9 @@ SPANS = (
     ("replicate.d2h_wait", "host_state: the wait for the snapshot's D2H "
      "copies"),
     ("replicate.flatten", "flatten_state of the host snapshot"),
-    ("replicate.digest", "tile_digests of the whole flattened state "
-     "(FramePublisher.publish)"),
+    ("replicate.digest", "tile digests of the snapshot: K1 on the device "
+     "clones, numpy on host-only leaves (FramePublisher.publish digests "
+     "the flattened state when its caller gives no digests)"),
     ("replicate.plan", "ChainPlanner.decide on those digests: the delta "
      "plan"),
     ("replicate.encode", "the frame's bytes: to_bytes, or gather_host and "
@@ -74,6 +75,9 @@ COUNTERS = (
     ("engine.prefill_pad_tokens", "tokens of the padding lanes prefilled"),
     ("replicate.bytes_digested", "bytes of state digested by "
      "replicate.digest"),
+    ("replicate.bytes_digested_device", "the part of "
+     "replicate.bytes_digested digested on the snapshot's device clones "
+     "where they live (K1 on a CUDA leaf, its plain version on a CPU one)"),
     ("replicate.bytes_framed", "bytes of the frames encoded (len of each "
      "payload)"),
     ("serve.tokens_replayed", "tokens the restored requests re-decoded "

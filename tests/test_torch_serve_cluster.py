@@ -25,6 +25,7 @@ from repro_torch.scenarios import catalog
 from repro_torch.scenarios.catalog import SERVE_CATALOG
 from repro_torch.serve import (LoadGen, Request, ServeCluster, ServeEngine,
                                ServeReplicator)
+from _torch_publish import assert_same_publishes, publish_both
 from _torch_serve_model import serve_models
 from _torch_threads import few_threads  # noqa: F401  (autouse)
 
@@ -147,6 +148,25 @@ def test_replicator_compose_restores_exact_engine(setup):
     got = {r.rid: list(r.out) for r in eng2.run_until_drained()}
     assert got == {k: expected[k] for k in got}
     assert sorted(got) == sorted(expected)
+
+
+def test_replicator_digests_clones_like_the_host_copy(setup):
+    """The replicator digests the snapshot's clones where they live (on
+    the CPU, K1's plain version): the same frames, kinds and tile rows as
+    a publisher given the host copy's numpy digests, and every byte it
+    digests counts as digested on the device; the host publisher's
+    count of those is 0."""
+    model, params = setup
+    eng = ServeEngine(model, params, n_slots=2, max_len=256)
+    for rid in range(3):
+        eng.submit(Request(rid=rid, prompt=[8, 9, rid + 1],
+                           max_new_tokens=6))
+    out = publish_both(eng, steps=5)
+    assert out.rep_kinds == ["full", "delta", "delta", "full", "delta"]
+    assert_same_publishes(out)
+    c = out.rep_counters
+    assert c["replicate.bytes_digested_device"] == \
+        c["replicate.bytes_digested"] > 0
 
 
 def _leaf_bits(v):

@@ -168,6 +168,8 @@ def test_replicator_counts(model, runs):
                for s in digests)
     assert tracer.counters["replicate.bytes_digested"] == \
         state_bytes * len(pubs)
+    assert tracer.counters["replicate.bytes_digested_device"] == \
+        state_bytes * len(pubs)
     # a publish's bytes are its frame's
     enc = {s[3]: s[4] for s in _by_name(tracer, "replicate.encode")}
     for i, s in enumerate(tracer.spans):
